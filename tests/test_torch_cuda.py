@@ -1,0 +1,153 @@
+"""The CUDA kernels on the card vs their plain PyTorch versions, exactly.
+
+Every test here needs an NVIDIA card with nvcc (``-m cuda``) and skips
+without one; run them on the card with
+``python -m pytest tests/test_torch_cuda.py -q``.  Tiles are made from a
+seed with numpy and go through the kernel and the plain version on the
+same device; int32 throughout, so the tolerance is zero.
+"""
+
+import json
+
+import numpy as np
+import pytest
+import torch
+
+from conftest import find_testdata, require_vocab
+
+from tokenizer_tpu.ops.merge_numpy import merge_packed_numpy
+from tokenizer_tpu.ops.packing import BUCKETS
+from tokenizer_tpu_torch.ops import merge_cuda
+from tokenizer_tpu_torch.ops.merge_torch import device_table, merge_packed_torch
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (kernels have no CPU interpret mode)")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def _tile(table, text: bytes, L: int, B: int, seed: int):
+    rng = np.random.default_rng(seed)
+    ids = np.full((L, B), -1, np.int32)
+    lengths = np.zeros(B, np.int32)
+    for c in range(B - 37):  # trailing columns stay empty
+        n = int(rng.integers(2, L + 1))
+        s = int(rng.integers(0, len(text) - n))
+        ids[:n, c] = table.byte_to_id[np.frombuffer(text[s : s + n], np.uint8)]
+        lengths[c] = n
+    return ids, lengths
+
+
+@pytest.mark.parametrize("L", BUCKETS)
+def test_merge_kernel_matches_plain(cuda, gpt2_pair_table, lib_rs_text, L):
+    table = gpt2_pair_table
+    tab = device_table(table, cuda)
+    kw = dict(slot_bits=table.slot_bits, max_probes=table.max_probes)
+    ids, lengths = _tile(table, lib_rs_text.encode(), L, 1024, seed=L)
+    di, dl = torch.from_numpy(ids).to(cuda), torch.from_numpy(lengths).to(cuda)
+    before = merge_cuda.LAUNCHES
+    k_ids, k_n = merge_cuda.merge_packed(tab, di, dl, **kw)
+    torch.cuda.synchronize()
+    assert merge_cuda.LAUNCHES == before + 1
+    p_ids, p_n = merge_packed_torch(tab, di, dl, **kw)
+    assert torch.equal(k_n, p_n) and torch.equal(k_ids, p_ids)
+    n_ids, n_n = merge_packed_numpy(ids, lengths, table)
+    np.testing.assert_array_equal(k_ids.cpu().numpy(), n_ids)
+    np.testing.assert_array_equal(k_n.cpu().numpy(), n_n)
+
+
+def test_lookup_kernel_matches_pair_table(cuda, gpt2_pair_table):
+    table = gpt2_pair_table
+    rng = np.random.default_rng(3)
+    keys = np.nonzero(table.key_left >= 0)[0]
+    hits = rng.choice(keys, 4096, replace=False)
+    left = np.concatenate(
+        [table.key_left[hits], rng.integers(-2, table.n_vocab, 4096), [2**31 - 1]]
+    ).astype(np.int32)
+    right = np.concatenate(
+        [table.key_right[hits], rng.integers(-2, table.n_vocab, 4096), [2**31 - 1]]
+    ).astype(np.int32)
+    got = merge_cuda.lookup_pairs(
+        device_table(table, cuda),
+        torch.from_numpy(left).to(cuda),
+        torch.from_numpy(right).to(cuda),
+        slot_bits=table.slot_bits,
+        max_probes=table.max_probes,
+    )
+    np.testing.assert_array_equal(got.cpu().numpy(), table.lookup(left, right))
+
+
+def test_gpu_tokenizer_golden_on_card(cuda, lib_rs_text):
+    require_vocab("gpt2")
+    import tokenizer_tpu_torch as tt
+
+    tok = tt.create_by_encoder_name("gpt2", allow_fetch=False, device="cuda")
+    tok._host_pp = float("inf")
+    tok._host_wave_max = 0
+    before = merge_cuda.LAUNCHES
+    (ids,) = tok.encode_batch([lib_rs_text])
+    assert list(ids) == json.loads(find_testdata("tokens_gpt2.json").read_text())
+    assert merge_cuda.LAUNCHES > before and tok.stats.device_pieces > 0
+
+
+def test_wrapper_rejects_mixed_devices(cuda, gpt2_pair_table):
+    table = gpt2_pair_table
+    ids = torch.full((16, 128), -1, dtype=torch.int32, device=cuda)
+    lengths = torch.zeros(128, dtype=torch.int32)
+    with pytest.raises(ValueError, match="expected"):
+        merge_cuda.merge_packed(
+            device_table(table, cuda),
+            ids,
+            lengths,
+            slot_bits=table.slot_bits,
+            max_probes=table.max_probes,
+        )
+
+
+def _toy_table(extra):
+    from tokenizer_tpu.ops.pair_table import PairTable
+    from tokenizer_tpu.vocab import Vocabulary
+
+    enc = {bytes([b]): b for b in range(256)}
+    for tok in extra:
+        enc[tok] = len(enc)
+    return PairTable.build(Vocabulary(enc, name="toy"), verify_closure=False)
+
+
+@pytest.mark.parametrize(
+    "extra,pieces,L,B",
+    [
+        # first-index tie-break on runs of one byte
+        ([b"aa", b"aaaa"], [b"aa", b"aaa", b"aaaaa", b"a" * 15], 16, 128),
+        # blocks converge independently: empty, light and heavy blocks
+        (
+            [b"ab", b"cd", b"ef", b"abcd", b"cdef", b"he", b"ll", b"llo", b"hello", b" hello"],
+            [b""] * 128 + [b"ab"] * 128 + [b"  hello 1234cdef"] * 128,
+            16,
+            384,
+        ),
+        # one-row and short tiles, length-1 and empty columns
+        ([b"ab"], [b"a", b"b", b""], 1, 128),
+        ([b"ab", b"abab"], [b"abababab", b"ba", b"b"], 8, 256),
+    ],
+)
+def test_degenerate_tiles(cuda, extra, pieces, L, B):
+    table = _toy_table(extra)
+    ids = np.full((L, B), -1, np.int32)
+    lengths = np.zeros(B, np.int32)
+    for c, p in enumerate(pieces):
+        ids[: len(p), c] = table.byte_to_id[np.frombuffer(p, np.uint8)]
+        lengths[c] = len(p)
+    tab = device_table(table, cuda)
+    kw = dict(slot_bits=table.slot_bits, max_probes=table.max_probes)
+    di, dl = torch.from_numpy(ids).to(cuda), torch.from_numpy(lengths).to(cuda)
+    k_ids, k_n = merge_cuda.merge_packed(tab, di, dl, **kw)
+    p_ids, p_n = merge_packed_torch(tab, di, dl, **kw)
+    assert torch.equal(k_n, p_n) and torch.equal(k_ids, p_ids)
+    n_ids, n_n = merge_packed_numpy(ids, lengths, table)
+    np.testing.assert_array_equal(k_ids.cpu().numpy(), n_ids)
+    np.testing.assert_array_equal(k_n.cpu().numpy(), n_n)
