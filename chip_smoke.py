@@ -24,10 +24,17 @@ result line):
    streams through ``encode_batch_stream`` in 256-document chunks and must
    equal, document for document, a host-routed tokenizer of the same
    vocabulary (every wave merged by the native C++ heap merge, no card);
-   bulk trims and decode are checked on 64 fresh documents.
+   bulk trims and decode are checked on 64 fresh documents;
+6. probe experiments, on the tables of phase 3: the row-copy (K3), the
+   L2-resident row (K4) and the one-hot int8 tensor-core (K5) probe
+   kernels equal their plain PyTorch versions on a ``[16, 128]`` tile and
+   ``PairTable.lookup`` on 65,536 pairs; then the experiment's own path,
+   ``exp_probe.run_arms`` (``tools/exp_cuda_probe.py``), runs every arm
+   on both tables, bit-exact, with kernel and plain times.
 
 The merge kernel's launch count is reset before phase 4 and read after
-phase 5.  The last lines are the card's name and power limit, the
+phase 5; the probe kernels' counts are reset just before ``run_arms`` and
+read after it.  The last lines are the card's name and power limit, the
 ``{"kernels": [...]}`` record, and ``{"ok": true, "device": {...}}``.
 Builds go under ``build/`` in the checkout.  The script reaches the JAX
 package's host layers only through ``tokenizer_tpu_torch``, and jax is
@@ -55,6 +62,7 @@ REPS = 5
 KERNEL = "merge_packed"
 KERNEL_SOURCE = "tokenizer_tpu_torch/csrc/merge_packed.cu"
 REPLACES = "tokenizer_tpu/ops/merge_pallas.py:213"  # and merge_jax.py:83
+PROBE_KERNELS = ("probe_rows_async", "probe_rows_resident", "lookup_onehot")  # K3, K4, K5
 
 _WORDS = (
     "the of and to in is was he for it with as his on be at by had not are"
@@ -152,24 +160,6 @@ def pack(table, pieces, L):
     return ids, lengths
 
 
-def median_ms(fn) -> float:
-    """Median of REPS CUDA-event timings of fn() after one warm-up."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(REPS):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return sorted(times)[len(times) // 2]
-
-
 def kernel_vs_plain(tok, pieces_by_L, device, rng) -> dict:
     """Phase 3 for one vocabulary; returns per-bucket times and the
     largest |kernel - plain| seen."""
@@ -177,6 +167,7 @@ def kernel_vs_plain(tok, pieces_by_L, device, rng) -> dict:
     import torch
 
     from tokenizer_tpu_torch.ops import merge_cuda
+    from tokenizer_tpu_torch.ops.exp_probe import median_ms
     from tokenizer_tpu_torch.ops.merge_torch import device_table, merge_packed_torch
 
     table = tok.table
@@ -219,12 +210,7 @@ def kernel_vs_plain(tok, pieces_by_L, device, rng) -> dict:
             flush=True,
         )
     # The probe alone: hits from the table, random pairs, negatives.
-    keys = np.nonzero(table.key_left >= 0)[0]
-    hits = rng.choice(keys, LOOKUP_PAIRS // 2, replace=False)
-    rest = LOOKUP_PAIRS - hits.size
-    left = np.concatenate([table.key_left[hits], rng.integers(-2, table.n_vocab, rest)])
-    right = np.concatenate([table.key_right[hits], rng.integers(-2, table.n_vocab, rest)])
-    left, right = left.astype(np.int32), right.astype(np.int32)
+    left, right = lookup_pairs_set(table, rng, LOOKUP_PAIRS)
     got = merge_cuda.lookup_pairs(
         tab, torch.from_numpy(left).to(device), torch.from_numpy(right).to(device), **kw
     )
@@ -234,6 +220,48 @@ def kernel_vs_plain(tok, pieces_by_L, device, rng) -> dict:
     )
     print(f"phase 3 {name} tt_lookup_pairs == PairTable.lookup on {LOOKUP_PAIRS} pairs", flush=True)
     return res
+
+
+def lookup_pairs_set(table, rng, n: int):
+    """n int32 pairs: half keys of the table, the rest random ids from -2
+    up (misses and invalid ids)."""
+    import numpy as np
+
+    keys = np.nonzero(table.key_left >= 0)[0]
+    hits = rng.choice(keys, n // 2, replace=False)
+    rest = n - hits.size
+    left = np.concatenate([table.key_left[hits], rng.integers(-2, table.n_vocab, rest)])
+    right = np.concatenate([table.key_right[hits], rng.integers(-2, table.n_vocab, rest)])
+    return left.astype(np.int32), right.astype(np.int32)
+
+
+def probe_vs_plain(table, name, device, rng) -> dict:
+    """Phase 6 checks for one table: K3, K4, K5 == plain on [16, 128] and
+    == PairTable.lookup on LOOKUP_PAIRS pairs.  Returns the largest
+    |kernel - plain| per kernel."""
+    import numpy as np
+    import torch
+
+    from tokenizer_tpu_torch.ops import exp_probe
+
+    calls = exp_probe.arm_calls(table, device)
+    small = [torch.from_numpy(a).to(device) for a in exp_probe.make_probes(table, exp_probe.SHAPE)]
+    l_np, r_np = lookup_pairs_set(table, rng, LOOKUP_PAIRS)
+    big = [torch.from_numpy(a.reshape(-1, 128)).to(device) for a in (l_np, r_np)]
+    want = table.lookup(l_np, r_np).reshape(-1, 128)
+    errs = {}
+    for k in PROBE_KERNELS:
+        kernel, plain = calls[k]
+        with exp_probe.l2_for(k, table, device):
+            got, got_big = kernel(*small), kernel(*big)
+            torch.cuda.synchronize()
+        errs[k] = int((got.long() - plain(*small).long()).abs().max())
+        check(errs[k] == 0, f"{name} {k}: kernel != plain on {exp_probe.SHAPE} (max |diff| {errs[k]})")
+        check(np.array_equal(got_big.cpu().numpy(), want),
+              f"{name} {k}: kernel != PairTable.lookup on {LOOKUP_PAIRS} pairs")
+        print(f"phase 6 {name} {k}: kernel == plain on {list(exp_probe.SHAPE)}, "
+              f"== PairTable.lookup on {LOOKUP_PAIRS} pairs", flush=True)
+    return errs
 
 
 def smi_line() -> str:
@@ -365,6 +393,35 @@ def main() -> int:
           f"{st['unique_pieces']}, host_fallback_pieces {st['host_fallback_pieces']}, "
           f"device_blocking_s {st['device_blocking_s']:.4f}, launches {stream_launches}; "
           f"main-path launches in all {launches} (gpt2 {launches_gpt2}); card {smi}", flush=True)
+
+    # -- 6. probe experiments (K3, K4, K5) ----------------------------------
+    from tokenizer_tpu_torch.ops import exp_probe, probe_cuda
+
+    t6 = time.perf_counter()
+    l2 = probe_cuda.l2_limits(device)
+    print(f"phase 6 L2 limits {json.dumps(l2)}", flush=True)
+    errs = {name: probe_vs_plain(toks[name].table, name, device, rng) for name in k_res}
+    probe_cuda.ASYNC_LAUNCHES = probe_cuda.RESIDENT_LAUNCHES = probe_cuda.ONEHOT_LAUNCHES = 0
+    arms = {name: exp_probe.run_arms(toks[name].table, device) for name in k_res}
+    torch.cuda.synchronize()
+    probe_launches = dict(zip(PROBE_KERNELS, (
+        probe_cuda.ASYNC_LAUNCHES, probe_cuda.RESIDENT_LAUNCHES, probe_cuda.ONEHOT_LAUNCHES,
+    )))
+    for name, recs in arms.items():
+        for rec in recs:
+            check(rec["bit_exact"] and rec["plain_bit_exact"],
+                  f"{name} {rec['arm']}: not bit-exact against PairTable.lookup ({rec})")
+            print(f"phase 6 run_arms {name} {rec['arm']} {rec['shape']}: bit-exact; kernel "
+                  f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms (median of "
+                  f"{exp_probe.REPS}, CUDA events); device time per call: kernel "
+                  f"{rec['device_us']} us, plain {rec['plain_device_us']} us (torch.profiler)",
+                  flush=True)
+    for k, n in probe_launches.items():
+        check(n > 0, f"the probe experiment's path did not launch {k}")
+    check(probe_cuda.l2_limits(device)["persisting_l2_bytes"] == l2["persisting_l2_bytes"],
+          "the persisting L2 set-aside was not given back after K4")
+    print(f"phase 6 launches in run_arms {json.dumps(probe_launches)}; "
+          f"{time.perf_counter() - t6:.2f} s; card {smi}", flush=True)
     check("jax" not in sys.modules, "jax was imported")
 
     ns = k_res["cl100k_synth"]
@@ -382,8 +439,30 @@ def main() -> int:
         "plain_ms_by_bucket": {f"{v}/L{L}": r["plain_ms"][L] for v, r in k_res.items() for L in BUCKETS},
         "cold_stream_MBps": nbytes / cold_s / 1e6,
     }
+    probes = []
+    for arm, source, replaces in exp_probe.ARMS:
+        if arm not in probe_launches:
+            continue  # the merge kernel's own probe, reported above
+        by_table = {name: next(r for r in recs if r["arm"] == arm) for name, recs in arms.items()}
+        probes.append({
+            "name": arm,
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "launches": probe_launches[arm],
+            "max_abs_err": max(e[arm] for e in errs.values()),
+            # run_arms' [16, 128] tile, cl100k_synth table
+            "ms": by_table["cl100k_synth"]["ms"],
+            "plain_ms": by_table["cl100k_synth"]["plain_ms"],
+            "ms_by_table": {name: r["ms"] for name, r in by_table.items()},
+            "plain_ms_by_table": {name: r["plain_ms"] for name, r in by_table.items()},
+            "device_us_by_table": {name: r["device_us"] for name, r in by_table.items()},
+            "plain_device_us_by_table": {
+                name: r["plain_device_us"] for name, r in by_table.items()
+            },
+        })
     print(smi, flush=True)
-    print(json.dumps({"kernels": [kernel]}), flush=True)
+    print(json.dumps({"kernels": [kernel, *probes]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

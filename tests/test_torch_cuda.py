@@ -151,3 +151,73 @@ def test_degenerate_tiles(cuda, extra, pieces, L, B):
     n_ids, n_n = merge_packed_numpy(ids, lengths, table)
     np.testing.assert_array_equal(k_ids.cpu().numpy(), n_ids)
     np.testing.assert_array_equal(k_n.cpu().numpy(), n_n)
+
+
+# -- the probe experiments: K3, K4, K5 ------------------------------------
+
+
+@pytest.fixture(scope="module", params=["gpt2", "cl100k_synth"])
+def probe_table(request):
+    require_vocab(request.param)
+    from tokenizer_tpu.vocab import Vocabulary
+
+    return Vocabulary.for_encoding(request.param, allow_fetch=False).pair_table()
+
+
+#: The launch counter of each probe wrapper.
+_COUNTERS = {
+    "probe_rows_async": "ASYNC_LAUNCHES",
+    "probe_rows_resident": "RESIDENT_LAUNCHES",
+    "lookup_onehot": "ONEHOT_LAUNCHES",
+}
+
+
+@pytest.mark.parametrize("kernel", ["probe_rows_async", "probe_rows_resident", "lookup_onehot"])
+def test_probe_kernel_matches_plain_and_pair_table(cuda, probe_table, kernel):
+    from tokenizer_tpu_torch.ops import probe_cuda
+    from tokenizer_tpu_torch.ops.exp_probe import arm_calls, l2_for, make_probes
+
+    table = probe_table
+    fn, plain = arm_calls(table, cuda)[kernel]
+    counter = _COUNTERS[kernel]
+    left, right = make_probes(table, (16, 128), seed=21)
+    near = 2**31 - 1
+    left[0, :4], right[0, :4] = [near, near - 1, -5, 0], [near, 3, 7, -1]
+    dl, dr = torch.from_numpy(left).to(cuda), torch.from_numpy(right).to(cuda)
+    before = getattr(probe_cuda, counter)
+    with l2_for(kernel, table, cuda):
+        got = fn(dl, dr)
+        torch.cuda.synchronize()
+    assert getattr(probe_cuda, counter) == before + 1
+    assert torch.equal(got, plain(dl, dr))
+    np.testing.assert_array_equal(got.cpu().numpy(), table.lookup(left, right))
+
+
+def test_probe_wrappers_raise_on_misaligned_planes(cuda, gpt2_pair_table):
+    from tokenizer_tpu_torch.ops import probe_cuda
+
+    table = gpt2_pair_table
+    n_rows = table.n_slots // 128
+    flat = torch.zeros(3 * table.n_slots + 1, dtype=torch.int32, device=cuda)
+    planes = tuple(flat[1 + k * table.n_slots : 1 + (k + 1) * table.n_slots].view(n_rows, 128)
+                   for k in range(3))
+    pairs = torch.zeros((1, 128), dtype=torch.int32, device=cuda)
+    kw = dict(slot_bits=table.slot_bits, max_probes=table.max_probes)
+    with pytest.raises(ValueError, match="aligned"):
+        probe_cuda.probe_rows_async(planes, pairs, pairs, **kw)
+
+
+def test_persisting_l2_limits_and_reset(cuda):
+    from tokenizer_tpu_torch.ops import probe_cuda
+
+    limits = probe_cuda.l2_limits(cuda)
+    assert limits["max_persisting_l2_bytes"] > 0 and limits["max_access_policy_window_bytes"] > 0
+    before = limits["persisting_l2_bytes"]
+    # CUDA rounds a set-aside up to its own granularity (3,276,800 bytes
+    # on an H100 80GB HBM3), so ask for one far from the current one.
+    cap = limits["max_persisting_l2_bytes"]
+    want = min(cap, (1 << 20) if before > cap // 2 else cap - (1 << 20))
+    with probe_cuda.persisting_l2(want, cuda):
+        now = probe_cuda.l2_limits(cuda)["persisting_l2_bytes"]
+        assert want <= now <= cap and now != before
+    assert probe_cuda.l2_limits(cuda)["persisting_l2_bytes"] == before

@@ -219,6 +219,7 @@ def test_import_and_cpu_encode_leave_jax_out():
     code = (
         "import sys\n"
         "import tokenizer_tpu_torch as tt\n"
+        "from tokenizer_tpu_torch.ops import exp_probe, probe_cuda\n"
         "assert 'jax' not in sys.modules\n"
         "tok = tt.create_by_encoder_name('gpt2', allow_fetch=False, device='cpu')\n"
         "tok._host_pp = float('inf'); tok._host_wave_max = 0\n"

@@ -25,7 +25,7 @@ import torch
 
 from tokenizer_tpu.ops.pair_table import MAX_RANK
 
-__all__ = ["device_table", "lookup_pairs_torch", "merge_packed_torch"]
+__all__ = ["device_table", "hash_slots", "lookup_pairs_torch", "merge_packed_torch"]
 
 _C1 = 0x85EBCA6B
 _C2 = 0xC2B2AE35
@@ -54,6 +54,19 @@ def _mul_u32(a: torch.Tensor, c: int) -> torch.Tensor:
     return (lo + (hi << 16)) & _U32
 
 
+def hash_slots(
+    left: torch.Tensor, right: torch.Tensor, slot_bits: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(home slot as int64, valid) of each pair; :func:`hash_pair_u32`
+    of the pair with negative ids hashed as (0, 0), as every probe does."""
+    valid = (left >= 0) & (right >= 0)
+    l = torch.where(valid, left, 0).to(torch.int64)
+    r = torch.where(valid, right, 0).to(torch.int64)
+    h = _mul_u32(l, _C1) ^ _mul_u32(r, _C2)
+    h = h ^ (h >> 16)
+    return _mul_u32(h, _FIB) >> (32 - slot_bits), valid
+
+
 def lookup_pairs_torch(
     tab: Dict[str, torch.Tensor],
     slot_bits: int,
@@ -66,12 +79,7 @@ def lookup_pairs_torch(
     Same mix, probe order, full-key comparison and stop-at-empty as
     :meth:`PairTable.lookup`; any shape, int32 in and out.
     """
-    valid = (left >= 0) & (right >= 0)
-    l = torch.where(valid, left, 0).to(torch.int64)
-    r = torch.where(valid, right, 0).to(torch.int64)
-    h = _mul_u32(l, _C1) ^ _mul_u32(r, _C2)
-    h = h ^ (h >> 16)
-    slot = _mul_u32(h, _FIB) >> (32 - slot_bits)
+    slot, valid = hash_slots(left, right, slot_bits)
     mask = (1 << slot_bits) - 1
 
     kl_a, kr_a, vv_a = tab["key_left"], tab["key_right"], tab["values"]

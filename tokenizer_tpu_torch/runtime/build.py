@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``) at first use.
 
-The kernels have a plain C interface: ``nvcc`` compiles them for Hopper
-(``sm_90a``) into one shared library, which is loaded with ``ctypes``.
+The kernels have a plain C interface: ``nvcc`` compiles each source for
+Hopper (``sm_90a``), all sources at once, and links them into one shared
+library, which is loaded with ``ctypes``.
 Nothing includes PyTorch's headers, so a build takes seconds.  The
 library lands in ``<cache>/cuda/``, where ``<cache>`` is the JAX
 package's cache directory (``TOKENIZER_TPU_CACHE_DIR``, by default
@@ -28,18 +29,19 @@ from tokenizer_tpu.vocab import default_cache_dir
 __all__ = ["build_dir", "build_library", "load_library", "SOURCES", "NVCC_FLAGS"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = (CSRC / "merge_packed.cu",)
+SOURCES = (CSRC / "merge_packed.cu", CSRC / "probe_rows.cu", CSRC / "lookup_onehot.cu")
 NVCC_FLAGS = (
     "-gencode",
     "arch=compute_90a,code=sm_90a",
     "-std=c++17",
     "-O3",
-    "-shared",
     "-Xcompiler",
     "-fPIC",
     "-Xptxas",
     "-v",
 )
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
+_TIMEOUT_S = 600
 
 _LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
@@ -63,7 +65,7 @@ def _nvcc() -> str:
 
 
 def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in SOURCES:
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -75,9 +77,31 @@ def build_dir() -> Path:
     return default_cache_dir() / "cuda"
 
 
+def _run_together(cmds) -> str:
+    """Start every command at once, wait for all, raise if one failed.
+
+    Returns their stderr, concatenated in order."""
+    procs = [
+        subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for c in cmds
+    ]
+    try:
+        errs = [p.communicate(timeout=_TIMEOUT_S)[1] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for cmd, p, err in zip(cmds, procs, errs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}): {' '.join(cmd)}\n{err[-4000:]}")
+    return "".join(errs)
+
+
 def build_library() -> Tuple[Path, str]:
     """Compile the kernels unless this source hash is built.
 
+    One ``nvcc -c`` per source, all started together, then one link.
     Returns the library's path and nvcc's report (registers and spills
     per kernel from ``-Xptxas -v``), which is empty when the library was
     already on disk.
@@ -86,17 +110,20 @@ def build_library() -> Tuple[Path, str]:
     lib = out_dir / f"libtt_kernels-{_digest()}.so"
     if lib.is_file():
         return lib, ""
-    out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f".build-{os.getpid()}-{threading.get_ident()}.so"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
-    res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    if res.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n{res.stderr[-4000:]}"
+    work = out_dir / f".build-{os.getpid()}-{threading.get_ident()}"
+    work.mkdir(parents=True, exist_ok=True)
+    try:
+        nvcc = _nvcc()
+        objs = [work / f"{src.stem}.o" for src in SOURCES]
+        report = _run_together(
+            [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)] for o, s in zip(objs, SOURCES)]
         )
-    os.replace(tmp, lib)
-    return lib, res.stderr
+        tmp = work / "lib.so"
+        _run_together([[nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objs)]])
+        os.replace(tmp, lib)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return lib, report
 
 
 def load_library() -> ctypes.CDLL:
@@ -111,11 +138,29 @@ def load_library() -> ctypes.CDLL:
                 _P, _P, _P, _P, _P,  # ids, lengths, out_ids, out_n, rank_scratch
                 _I, _I, _P,  # L, B, stream
             ]
-            lib.tt_lookup_pairs.restype = _I
-            lib.tt_lookup_pairs.argtypes = [
+            probe = [
                 _P, _P, _P, _I, _I,  # key_left, key_right, values, slot_bits, max_probes
-                _P, _P, _P, ctypes.c_longlong, _P,  # left, right, out, n, stream
+                _P, _P, _P, ctypes.c_longlong,  # left, right, out, n
             ]
+            lib.tt_lookup_pairs.restype = _I
+            lib.tt_lookup_pairs.argtypes = probe + [_P]  # stream
+            lib.tt_probe_rows_async.restype = _I
+            lib.tt_probe_rows_async.argtypes = probe + [_P]  # stream
+            lib.tt_probe_rows_resident.restype = _I
+            lib.tt_probe_rows_resident.argtypes = probe + [
+                _P, ctypes.c_size_t, _P,  # window base, window bytes, stream
+            ]
+            lib.tt_lookup_onehot.restype = _I
+            lib.tt_lookup_onehot.argtypes = [
+                _P, _I, _I, _I,  # tab_t [4, 384, n_rows], n_rows, slot_bits, max_probes
+                _P, _P, _P, _P, _I, _P,  # left, right, out, scratch, S, stream
+            ]
+            lib.tt_l2_persist_attrs.restype = _I
+            lib.tt_l2_persist_attrs.argtypes = [_P, _P, _P]  # int*, int*, size_t* (out)
+            lib.tt_l2_persist_set.restype = _I
+            lib.tt_l2_persist_set.argtypes = [ctypes.c_size_t]
+            lib.tt_l2_persist_reset.restype = _I
+            lib.tt_l2_persist_reset.argtypes = []
             lib.tt_error_string.restype = ctypes.c_char_p
             lib.tt_error_string.argtypes = [_I]
             _LIB = lib
