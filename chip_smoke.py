@@ -14,10 +14,15 @@ result line):
 2. build: the CUDA kernels compile with nvcc from ``tokenizer_tpu_torch/csrc``;
 3. kernel vs plain: for the gpt2 and cl100k_synth pair tables, one
    ``[L, 8192]`` tile of real corpus pieces per packer bucket L goes
-   through the CUDA merge kernel and its plain PyTorch version on the card
-   (equal, exactly) and through the native C++ heap merge on the host
+   through the CUDA merge kernel (warp per column), the port's first merge
+   kernel (thread per column) and the plain PyTorch version on the card
+   (all equal, exactly) and through the native C++ heap merge on the host
    (1024 columns); the probe kernel is held to ``PairTable.lookup`` on
-   65,536 pairs; both merges are timed with CUDA events;
+   65,536 pairs.  Each kernel's device time (launches queued behind a
+   sleep kernel, CUDA events; the plain merge by CUDA events around each
+   call) is set beside the tile's bound: its bytes over 3.35 TB/s, the
+   tile in and out and the table bytes of the distinct pairs the plain
+   merge had to probe, each slot once (``table_bytes``);
 4. main path, gpt2: ``encode_batch`` of ``tests/testdata/lib.rs.txt`` with
    every wave forced onto the card must give the 11,378 golden ids;
 5. main path, cl100k_synth: an ~8 MB cold corpus made from ``--seed``
@@ -32,13 +37,13 @@ result line):
    ``exp_probe.run_arms`` (``tools/exp_cuda_probe.py``), runs every arm
    on both tables, bit-exact, with kernel and plain times.
 
-The merge kernel's launch count is reset before phase 4 and read after
-phase 5; the probe kernels' counts are reset just before ``run_arms`` and
-read after it.  The last lines are the card's name and power limit, the
+The merge kernels' launch counts are reset before phase 4 and read after
+phase 5 (the first merge kernel must not be launched there); the probe
+kernels' counts are reset just before ``run_arms`` and read after it.
+The last lines are the card's name and power limit, the
 ``{"kernels": [...]}`` record, and ``{"ok": true, "device": {...}}``.
-Builds go under ``build/`` in the checkout.  The script reaches the JAX
-package's host layers only through ``tokenizer_tpu_torch``, and jax is
-never imported.
+Builds go under ``build/`` in the checkout.  The script imports nothing
+of the JAX package and never jax; it checks both at its end.
 """
 
 from __future__ import annotations
@@ -49,10 +54,11 @@ import os
 import subprocess
 import sys
 import time
+from functools import partial
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-BUCKETS = (16, 64, 128, 256, 512)  # tokenizer_tpu/ops/packing.py BUCKETS
+BUCKETS = (16, 64, 128, 256, 512)  # tokenizer_tpu_torch/ops/packing.py BUCKETS
 TILE_B = 8192  # the packer's widest tile (packing.py MAX_B)
 HOST_COLS = 1024
 LOOKUP_PAIRS = 65536
@@ -63,6 +69,14 @@ KERNEL = "merge_packed"
 KERNEL_SOURCE = "tokenizer_tpu_torch/csrc/merge_packed.cu"
 REPLACES = "tokenizer_tpu/ops/merge_pallas.py:213"  # and merge_jax.py:83
 PROBE_KERNELS = ("probe_rows_async", "probe_rows_resident", "lookup_onehot")  # K3, K4, K5
+#: NVIDIA H100 SXM device memory rate, bytes/s (data sheet).
+HBM_BYTES_PER_S = 3.35e12
+#: Bytes of one pair-table slot: key_left, key_right, value.
+SLOT_BYTES = 12
+#: Bytes of one slot's key_left, which every probe reads first.
+KEY_BYTES = 4
+#: NVIDIA H100 SXM dense int8 tensor-core peak, operations/s (data sheet).
+INT8_OPS_PER_S = 1979e12
 
 _WORDS = (
     "the of and to in is was he for it with as his on be at by had not are"
@@ -127,12 +141,28 @@ def gen_corpus(target_mb: float, seed: int, seed_text: str) -> list:
     return docs
 
 
+def synth_bucket_pieces(rng, lo: int, hi: int, count: int) -> list:
+    """Pieces of lo < len <= hi bytes (bench.py _synth_bucket_pieces):
+    CJK runs (3-byte characters, never split), digit runs and no-space
+    ASCII identifier runs, in turn."""
+    out = []
+    for k in range(count):
+        kind = k % 3
+        target = int(rng.integers(lo + 1, hi + 1))
+        if kind == 0:
+            cps = rng.integers(0x4E00, 0x4E00 + 2000, size=max(1, target // 3))
+            out.append("".join(chr(c) for c in cps).encode("utf-8"))
+        elif kind == 1:
+            out.append(bytes(rng.integers(48, 58, size=target).astype("u1")))
+        else:
+            out.append(bytes(rng.integers(97, 123, size=target).astype("u1")))
+    return [p for p in out if lo < len(p) <= hi]
+
+
 def bucket_pieces(tok, docs, rng, count: int) -> dict:
     """Per bucket L, ``count`` pieces with prev_L < len <= L: the corpus's
-    own regex pieces first, topped up with bench.py's CJK, digit and
-    identifier runs where the corpus has too few."""
-    from bench import _synth_bucket_pieces  # numpy only
-
+    own regex pieces first, topped up with CJK, digit and identifier runs
+    where the corpus has too few."""
     seen = set()
     for d in docs[:400]:
         seen.update(p.encode("utf-8") for p in tok._re.findall(d))
@@ -143,7 +173,7 @@ def bucket_pieces(tok, docs, rng, count: int) -> dict:
             pool = [pool[i] for i in sorted(rng.choice(len(pool), count, replace=False))]
         out[("corpus", L)] = len(pool)
         while len(pool) < count:
-            pool += _synth_bucket_pieces(rng, prev, L, count - len(pool))
+            pool += synth_bucket_pieces(rng, prev, L, count - len(pool))
         out[L] = pool
         prev = L
     return out
@@ -160,34 +190,69 @@ def pack(table, pieces, L):
     return ids, lengths
 
 
+def bound_us(nbytes: int) -> float:
+    """The least time, in µs, that moving ``nbytes`` through device memory
+    takes; integer work has no published peak, so bytes bound these kernels."""
+    return nbytes / HBM_BYTES_PER_S * 1e6
+
+
+def table_bytes(table, left, right) -> tuple:
+    """(bytes, distinct pairs): the pair-table bytes that probing the
+    pairs (left, right) must read, each slot once.  Every distinct pair
+    of valid ids reads the key_left of its home slot (4 B, once per
+    distinct home slot); a pair that hits also reads the key_right and
+    value of its own slot (8 B).  Pairs with a negative id read nothing."""
+    import numpy as np
+
+    from tokenizer_tpu_torch.ops.pair_table import MAX_RANK, hash_pair_u32
+
+    left, right = np.asarray(left, np.int64), np.asarray(right, np.int64)
+    ok = (left >= 0) & (right >= 0)
+    keys = np.unique((left[ok] << 32) | right[ok])
+    l, r = (keys >> 32).astype(np.int32), (keys & 0xFFFFFFFF).astype(np.int32)
+    homes = np.unique(hash_pair_u32(l, r, table.slot_bits)).size
+    hits = int((table.lookup(l, r) != MAX_RANK).sum())
+    return KEY_BYTES * homes + (SLOT_BYTES - KEY_BYTES) * hits, keys.size
+
+
 def kernel_vs_plain(tok, pieces_by_L, device, rng) -> dict:
-    """Phase 3 for one vocabulary; returns per-bucket times and the
-    largest |kernel - plain| seen."""
+    """Phase 3 for one vocabulary; returns per-bucket times of both merge
+    kernels and the plain merge, each bucket's bound, and the largest
+    |kernel - plain| seen."""
     import numpy as np
     import torch
 
     from tokenizer_tpu_torch.ops import merge_cuda
-    from tokenizer_tpu_torch.ops.exp_probe import median_ms
+    from tokenizer_tpu_torch.ops.exp_probe import median_ms, queued_ms
     from tokenizer_tpu_torch.ops.merge_torch import device_table, merge_packed_torch
 
     table = tok.table
     tab = device_table(table, device)
     kw = dict(slot_bits=table.slot_bits, max_probes=table.max_probes)
     name = tok.vocab.name
-    res = {"ms": {}, "plain_ms": {}, "max_abs_err": 0}
+    res = {"ms": {}, "v1_ms": {}, "plain_ms": {}, "bound_us": {}, "max_abs_err": 0}
     for L in BUCKETS:
         ids, lengths = pack(table, pieces_by_L[L], L)
         di = torch.from_numpy(ids).to(device)
         dl = torch.from_numpy(lengths).to(device)
         k_ids, k_n = merge_cuda.merge_packed(tab, di, dl, **kw)
-        p_ids, p_n = merge_packed_torch(tab, di, dl, **kw)
+        v_ids, v_n = merge_cuda.merge_packed_v1(tab, di, dl, **kw)
+        probed = []  # every pair the merge needs, as left << 32 | right
+
+        def on_probe(left, right):
+            ok = (left >= 0) & (right >= 0)
+            probed.append((left[ok].long() << 32) | right[ok].long())
+
+        p_ids, p_n = merge_packed_torch(tab, di, dl, **kw, on_probe=on_probe)
+        keys = torch.unique(torch.cat(probed)).cpu().numpy()
         torch.cuda.synchronize()
-        err = max(
-            int((k_ids.long() - p_ids.long()).abs().max()),
-            int((k_n.long() - p_n.long()).abs().max()),
-        )
-        res["max_abs_err"] = max(res["max_abs_err"], err)
-        check(err == 0, f"{name} L={L}: kernel != plain (max |diff| {err})")
+        for what, (o_ids, o_n) in (("kernel", (k_ids, k_n)), ("first kernel", (v_ids, v_n))):
+            err = max(
+                int((o_ids.long() - p_ids.long()).abs().max()),
+                int((o_n.long() - p_n.long()).abs().max()),
+            )
+            res["max_abs_err"] = max(res["max_abs_err"], err)
+            check(err == 0, f"{name} L={L}: {what} != plain (max |diff| {err})")
         # The native C++ heap merge on the host, one piece per column.
         h_out, h_offs, h_n = tok._native.bpe_encode_batch(pieces_by_L[L][:HOST_COLS], table)
         got_ids, got_n = k_ids[:, :HOST_COLS].cpu().numpy(), k_n[:HOST_COLS].cpu().numpy()
@@ -199,14 +264,28 @@ def kernel_vs_plain(tok, pieces_by_L, device, rng) -> dict:
             ),
             f"{name} L={L}: kernel != native C++ merge on {HOST_COLS} columns",
         )
-        ms = median_ms(lambda: merge_cuda.merge_packed(tab, di, dl, **kw))
-        plain = median_ms(lambda: merge_packed_torch(tab, di, dl, **kw))
-        res["ms"][L], res["plain_ms"][L] = ms, plain
+        # Device time alone: CUDA events around one launch of a few tens
+        # of µs time the host's enqueue instead.
+        dev = {
+            "new": queued_ms(partial(merge_cuda.merge_packed, tab, di, dl, **kw)),
+            "first": queued_ms(partial(merge_cuda.merge_packed_v1, tab, di, dl, **kw)),
+        }
+        plain = median_ms(partial(merge_packed_torch, tab, di, dl, **kw))
+        out_n = k_n.cpu().numpy().astype(np.int64)
+        tile_bytes = 2 * ids.nbytes + 2 * lengths.nbytes
+        tab_bytes, n_pairs = table_bytes(table, keys >> 32, keys & 0xFFFFFFFF)
+        b_us = bound_us(tile_bytes + tab_bytes)
+        res["ms"][L], res["v1_ms"][L] = dev["new"], dev["first"]
+        res["plain_ms"][L], res["bound_us"][L] = plain, b_us
+        merges = int((lengths - out_n).sum())
         print(
             f"phase 3 {name} [{L}, {TILE_B}] ({pieces_by_L[('corpus', L)]} corpus pieces, "
-            f"rest synthesized) kernel == plain (exact), == native C++ merge on {HOST_COLS} cols; "
-            f"merges {int((dl - k_n).sum())}; kernel {ms:.4f} ms, "
-            f"plain {plain:.4f} ms (median of {REPS}, CUDA events)",
+            f"rest synthesized) kernel == first kernel == plain (exact), == native C++ merge "
+            f"on {HOST_COLS} cols; merges {merges}; device ms (queued): kernel "
+            f"{dev['new']:.4f}, first kernel {dev['first']:.4f}; plain {plain:.4f} ms (CUDA "
+            f"events, median of {REPS}); bound {b_us:.3f} us (bytes: tile {tile_bytes}, table "
+            f"{tab_bytes} for {n_pairs} distinct pairs probed): kernel "
+            f"{b_us / 1e3 / dev['new']:.4%}, first kernel {b_us / 1e3 / dev['first']:.4%} of it",
             flush=True,
         )
     # The probe alone: hits from the table, random pairs, negatives.
@@ -262,6 +341,15 @@ def probe_vs_plain(table, name, device, rng) -> dict:
         print(f"phase 6 {name} {k}: kernel == plain on {list(exp_probe.SHAPE)}, "
               f"== PairTable.lookup on {LOOKUP_PAIRS} pairs", flush=True)
     return errs
+
+
+def probe_bound_us(table) -> float:
+    """The bound of phase 6's [16, 128] lookup: the pairs in and the
+    ids out, and the table bytes its distinct valid pairs read."""
+    from tokenizer_tpu_torch.ops import exp_probe
+
+    left, right = exp_probe.make_probes(table, exp_probe.SHAPE)
+    return bound_us(3 * left.nbytes + table_bytes(table, left, right)[0])
 
 
 def smi_line() -> str:
@@ -330,7 +418,7 @@ def main() -> int:
         )
 
     # -- 4. main path, gpt2 golden -----------------------------------------
-    merge_cuda.LAUNCHES = 0
+    merge_cuda.LAUNCHES = merge_cuda.V1_LAUNCHES = 0
     gpt2 = tt.create_by_encoder_name("gpt2", allow_fetch=False, device=device)
     gpt2._host_pp = float("inf")  # force every wave onto the card
     gpt2._host_wave_max = 0
@@ -386,6 +474,8 @@ def main() -> int:
     check(tok.decode_batch(fresh_ids) == [d + " tail" for d in fresh], "decode_batch differs")
     torch.cuda.synchronize()
     launches = merge_cuda.LAUNCHES
+    check(merge_cuda.V1_LAUNCHES == 0,
+          f"the main path launched the first merge kernel {merge_cuda.V1_LAUNCHES} times")
     print(f"phase 5 trims (suffix, prefix) and decode_batch == reference on {len(fresh)} docs", flush=True)
     print(f"phase 5 cold encode_batch_stream {nbytes / cold_s / 1e6:.3f} MB/s ({cold_s:.3f} s; "
           f"host-routed reference {nbytes / ref_s / 1e6:.3f} MB/s); stream: device_waves "
@@ -412,9 +502,9 @@ def main() -> int:
             check(rec["bit_exact"] and rec["plain_bit_exact"],
                   f"{name} {rec['arm']}: not bit-exact against PairTable.lookup ({rec})")
             print(f"phase 6 run_arms {name} {rec['arm']} {rec['shape']}: bit-exact; kernel "
-                  f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms (median of "
-                  f"{exp_probe.REPS}, CUDA events); device time per call: kernel "
-                  f"{rec['device_us']} us, plain {rec['plain_device_us']} us (torch.profiler)",
+                  f"{rec['device_us']} us (queued); plain {rec['plain_ms']:.4f} ms (median of "
+                  f"{exp_probe.REPS}, CUDA events), {rec['plain_device_us']} us of device "
+                  "time (torch.profiler)",
                   flush=True)
     for k, n in probe_launches.items():
         check(n > 0, f"the probe experiment's path did not launch {k}")
@@ -422,7 +512,9 @@ def main() -> int:
           "the persisting L2 set-aside was not given back after K4")
     print(f"phase 6 launches in run_arms {json.dumps(probe_launches)}; "
           f"{time.perf_counter() - t6:.2f} s; card {smi}", flush=True)
-    check("jax" not in sys.modules, "jax was imported")
+    leaked = sorted(m for m in sys.modules
+                    if m in ("jax", "bench", "tokenizer_tpu") or m.startswith("tokenizer_tpu."))
+    check(not leaked, f"imported {leaked}")
 
     ns = k_res["cl100k_synth"]
     kernel = {
@@ -432,11 +524,17 @@ def main() -> int:
         "replaces": REPLACES,
         "launches": launches,
         "max_abs_err": max(r["max_abs_err"] for r in k_res.values()),
-        # one [L, 8192] tile of each bucket, cl100k_synth table, summed
+        # one [L, 8192] tile of each bucket, cl100k_synth table, summed;
+        # ms: device time (exp_probe.queued_ms), plain_ms: CUDA events
         "ms": sum(ns["ms"].values()),
         "plain_ms": sum(ns["plain_ms"].values()),
+        "bound_ms": sum(ns["bound_us"].values()) / 1e3,
+        "bound_by": "bytes",
+        "library_ms": None,  # no PyTorch call computes the merge
         "ms_by_bucket": {f"{v}/L{L}": r["ms"][L] for v, r in k_res.items() for L in BUCKETS},
+        "v1_ms_by_bucket": {f"{v}/L{L}": r["v1_ms"][L] for v, r in k_res.items() for L in BUCKETS},
         "plain_ms_by_bucket": {f"{v}/L{L}": r["plain_ms"][L] for v, r in k_res.items() for L in BUCKETS},
+        "bound_us_by_bucket": {f"{v}/L{L}": r["bound_us"][L] for v, r in k_res.items() for L in BUCKETS},
         "cold_stream_MBps": nbytes / cold_s / 1e6,
     }
     probes = []
@@ -444,6 +542,7 @@ def main() -> int:
         if arm not in probe_launches:
             continue  # the merge kernel's own probe, reported above
         by_table = {name: next(r for r in recs if r["arm"] == arm) for name, recs in arms.items()}
+        bounds = {name: probe_bound_us(toks[name].table) for name in by_table}
         probes.append({
             "name": arm,
             "route": "cuda",
@@ -451,16 +550,28 @@ def main() -> int:
             "replaces": replaces,
             "launches": probe_launches[arm],
             "max_abs_err": max(e[arm] for e in errs.values()),
-            # run_arms' [16, 128] tile, cl100k_synth table
-            "ms": by_table["cl100k_synth"]["ms"],
+            # run_arms' [16, 128] tile, cl100k_synth table; ms: device
+            # time (exp_probe.queued_ms), plain_ms: CUDA events
+            "ms": by_table["cl100k_synth"]["device_us"] / 1e3,
             "plain_ms": by_table["cl100k_synth"]["plain_ms"],
-            "ms_by_table": {name: r["ms"] for name, r in by_table.items()},
+            "bound_ms": bounds["cl100k_synth"] / 1e3,
+            "bound_by": "bytes",
+            "library_ms": None,  # no PyTorch call computes a hash-table lookup
+            "bound_us_by_table": bounds,
             "plain_ms_by_table": {name: r["plain_ms"] for name, r in by_table.items()},
             "device_us_by_table": {name: r["device_us"] for name, r in by_table.items()},
             "plain_device_us_by_table": {
                 name: r["plain_device_us"] for name, r in by_table.items()
             },
         })
+        if arm == "lookup_onehot":
+            # K5's formulation, not the lookup: the one-hot int8 products
+            # of every round and byte plane at the int8 peak.
+            probes[-1]["onehot_ops_bound_us_by_table"] = {
+                name: 2 * exp_probe.SHAPE[0] * 128 * toks[name].table.max_probes
+                * toks[name].table.n_slots * 3 * 4 / INT8_OPS_PER_S * 1e6
+                for name in by_table
+            }
     print(smi, flush=True)
     print(json.dumps({"kernels": [kernel, *probes]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -55,9 +55,61 @@ def test_merge_kernel_matches_plain(cuda, gpt2_pair_table, lib_rs_text, L):
     assert merge_cuda.LAUNCHES == before + 1
     p_ids, p_n = merge_packed_torch(tab, di, dl, **kw)
     assert torch.equal(k_n, p_n) and torch.equal(k_ids, p_ids)
+    v_ids, v_n = merge_cuda.merge_packed_v1(tab, di, dl, **kw)
+    assert torch.equal(k_n, v_n) and torch.equal(k_ids, v_ids)
     n_ids, n_n = merge_packed_numpy(ids, lengths, table)
     np.testing.assert_array_equal(k_ids.cpu().numpy(), n_ids)
     np.testing.assert_array_equal(k_n.cpu().numpy(), n_n)
+
+
+def _three_way(cuda, table, ids, lengths):
+    """The kernel, the first kernel and the plain merge on one tile; all
+    three must agree exactly.  Returns the kernel's (out_ids, out_n)."""
+    tab = device_table(table, cuda)
+    kw = dict(slot_bits=table.slot_bits, max_probes=table.max_probes)
+    di, dl = torch.from_numpy(ids).to(cuda), torch.from_numpy(lengths).to(cuda)
+    before = (merge_cuda.LAUNCHES, merge_cuda.V1_LAUNCHES)
+    k_ids, k_n = merge_cuda.merge_packed(tab, di, dl, **kw)
+    v_ids, v_n = merge_cuda.merge_packed_v1(tab, di, dl, **kw)
+    torch.cuda.synchronize()
+    assert (merge_cuda.LAUNCHES, merge_cuda.V1_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    p_ids, p_n = merge_packed_torch(tab, di, dl, **kw)
+    assert torch.equal(k_n, v_n) and torch.equal(k_ids, v_ids)
+    assert torch.equal(k_n, p_n) and torch.equal(k_ids, p_ids)
+    return k_ids.cpu().numpy(), k_n.cpu().numpy()
+
+
+@pytest.fixture(scope="module", params=["gpt2", "cl100k_synth"])
+def merge_table(request):
+    require_vocab(request.param)
+    from tokenizer_tpu_torch.vocab import Vocabulary
+
+    return Vocabulary.for_encoding(request.param, allow_fetch=False).pair_table()
+
+
+@pytest.mark.parametrize("L", BUCKETS)
+def test_kernel_matches_first_kernel_and_plain(cuda, merge_table, lib_rs_text, L):
+    """Every bucket on both tables: windows of real text, CJK runs and digit
+    runs, 2..L bytes long."""
+    table = merge_table
+    rng = np.random.default_rng(100 + L)
+    text = lib_rs_text.encode()
+    pieces = []
+    for c in range(2048 - 19):  # trailing columns stay empty
+        n = int(rng.integers(2, L + 1))
+        kind = c % 4
+        if kind == 2:  # 3-byte characters
+            p = "".join(map(chr, rng.integers(0x4E00, 0x4E00 + 2000, size=max(1, n // 3))))
+            p = p.encode()
+        elif kind == 3:
+            p = bytes(rng.integers(48, 58, size=n).astype("u1"))
+        else:
+            s = int(rng.integers(0, len(text) - n))
+            p = text[s : s + n]
+        pieces.append(p)
+    ids, lengths = _pack(table, pieces, L, 2048)
+    k_ids, k_n = _three_way(cuda, table, ids, lengths)
+    assert (k_n < lengths).any()  # the tile merges
 
 
 def test_lookup_kernel_matches_pair_table(cuda, gpt2_pair_table):
@@ -108,6 +160,15 @@ def test_wrapper_rejects_mixed_devices(cuda, gpt2_pair_table):
         )
 
 
+def _pack(table, pieces, L, B):
+    ids = np.full((L, B), -1, np.int32)
+    lengths = np.zeros(B, np.int32)
+    for c, p in enumerate(pieces):
+        ids[: len(p), c] = table.byte_to_id[np.frombuffer(p, np.uint8)]
+        lengths[c] = len(p)
+    return ids, lengths
+
+
 def _toy_table(extra):
     from tokenizer_tpu.ops.pair_table import PairTable
     from tokenizer_tpu.vocab import Vocabulary
@@ -148,9 +209,78 @@ def test_degenerate_tiles(cuda, extra, pieces, L, B):
     k_ids, k_n = merge_cuda.merge_packed(tab, di, dl, **kw)
     p_ids, p_n = merge_packed_torch(tab, di, dl, **kw)
     assert torch.equal(k_n, p_n) and torch.equal(k_ids, p_ids)
+    v_ids, v_n = merge_cuda.merge_packed_v1(tab, di, dl, **kw)
+    assert torch.equal(k_n, v_n) and torch.equal(k_ids, v_ids)
     n_ids, n_n = merge_packed_numpy(ids, lengths, table)
     np.testing.assert_array_equal(k_ids.cpu().numpy(), n_ids)
     np.testing.assert_array_equal(k_n.cpu().numpy(), n_n)
+
+
+def test_out_of_range_lengths_and_unpadded_rows(cuda):
+    """Lengths below 0 or above L are clamped, and rows at or beyond a
+    column's length are copied unchanged, as the first kernel does.  Under
+    the -1 padding the plain merge of the clamped lengths agrees too."""
+    table = _toy_table([b"ab", b"abab", b"aa", b"aaaa"])
+    L, B = 16, 128
+    rng = np.random.default_rng(5)
+    pieces = [b"abababababababab", b"aaaaaaaaaaaaaaaa", b"abab", b"a", b"", b"ba"] * 21
+    ids, lengths = _pack(table, pieces[:B], L, B)
+    lengths[:8] = [-3, -1, 0, 1, L, L + 1, L + 7, 10**6]
+    clamped = np.clip(lengths, 0, L)
+    k_ids, k_n = _three_way(cuda, table, ids, clamped)
+    tab = device_table(table, cuda)
+    kw = dict(slot_bits=table.slot_bits, max_probes=table.max_probes)
+    got = merge_cuda.merge_packed(
+        tab, torch.from_numpy(ids).to(cuda), torch.from_numpy(lengths).to(cuda), **kw
+    )
+    np.testing.assert_array_equal(got[0].cpu().numpy(), k_ids)
+    np.testing.assert_array_equal(got[1].cpu().numpy(), k_n)
+    # Garbage beyond each length: copied through, and the first kernel agrees.
+    dirty = ids.copy()
+    beyond = np.arange(L)[:, None] >= clamped[None, :]
+    dirty[beyond] = rng.integers(0, 256, size=int(beyond.sum()))
+    di, dl = torch.from_numpy(dirty).to(cuda), torch.from_numpy(lengths).to(cuda)
+    d_ids, d_n = merge_cuda.merge_packed(tab, di, dl, **kw)
+    v_ids, v_n = merge_cuda.merge_packed_v1(tab, di, dl, **kw)
+    assert torch.equal(d_ids, v_ids) and torch.equal(d_n, v_n)
+    d_ids = d_ids.cpu().numpy()
+    np.testing.assert_array_equal(d_ids[beyond], dirty[beyond])
+    np.testing.assert_array_equal(d_ids[~beyond], k_ids[~beyond])
+
+
+def test_tie_break_on_repeated_pairs(cuda, gpt2_pair_table):
+    """Runs of one byte and of digit pairs, where many pairs share the
+    minimum rank and the first one must merge."""
+    table = gpt2_pair_table
+    pieces = []
+    for n in range(2, 129):
+        pieces += [b"a" * n, b"1" * n, b"0" * n, (b"12" * n)[:n], (b"aab" * n)[:n], b" " * n]
+    pieces = pieces[:768]
+    ids, lengths = _pack(table, pieces, 128, 768)
+    k_ids, k_n = _three_way(cuda, table, ids, lengths)
+    n_ids, n_n = merge_packed_numpy(ids, lengths, table)
+    np.testing.assert_array_equal(k_ids, n_ids)
+    np.testing.assert_array_equal(k_n, n_n)
+
+
+def test_length_limit(cuda, gpt2_pair_table, lib_rs_text):
+    """A tile of MAX_L rows merges like the first kernel and the plain
+    merge; one row more raises and names the limit."""
+    table = gpt2_pair_table
+    L = merge_cuda.MAX_L
+    text = lib_rs_text.encode()
+    rng = np.random.default_rng(9)
+    pieces = [text[s : s + n] for s, n in zip(rng.integers(0, len(text) - L, 128),
+                                             rng.integers(L // 2, L + 1, 128))]
+    pieces[0] = b"9" * L
+    ids, lengths = _pack(table, pieces, L, 128)
+    _three_way(cuda, table, ids, lengths)
+    over = torch.full((L + 1, 128), -1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match=f"MAX_L = {L}"):
+        merge_cuda.merge_packed(
+            device_table(table, cuda), over, torch.zeros(128, dtype=torch.int32, device=cuda),
+            slot_bits=table.slot_bits, max_probes=table.max_probes,
+        )
 
 
 # -- the probe experiments: K3, K4, K5 ------------------------------------

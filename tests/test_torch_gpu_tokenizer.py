@@ -216,28 +216,34 @@ def test_small_waves_stay_on_host_by_default(gpt2_pair):
 
 
 def test_import_and_cpu_encode_leave_jax_out():
+    """Importing the port, a CPU gpt2 encode through the merge route and
+    the probe runner's CPU run load neither jax nor any module of the JAX
+    package."""
     code = (
-        "import sys\n"
+        "import importlib.util, sys\n"
         "import tokenizer_tpu_torch as tt\n"
         "from tokenizer_tpu_torch.ops import exp_probe, probe_cuda\n"
-        "assert 'jax' not in sys.modules\n"
         "tok = tt.create_by_encoder_name('gpt2', allow_fetch=False, device='cpu')\n"
         "tok._host_pp = float('inf'); tok._host_wave_max = 0\n"
         "ids = tok.encode_batch(['hello world 12345', 'fresh pieces here'])\n"
         "assert tok.stats.device_pieces > 0\n"
-        "print('jax' in sys.modules)\n"
+        "spec = importlib.util.spec_from_file_location('runner', 'tools/exp_cuda_probe.py')\n"
+        "runner = importlib.util.module_from_spec(spec); spec.loader.exec_module(runner)\n"
+        "assert runner.main(['--table', 'gpt2', '--device', 'cpu', '--tile', '1']) == 0\n"
+        "print(sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "             or m == 'tokenizer_tpu' or m.startswith('tokenizer_tpu.')))\n"
     )
     out = subprocess.run(
         [sys.executable, "-c", code],
         cwd=str(REPO),
         capture_output=True,
         text=True,
-        timeout=120,
+        timeout=300,
         env={k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
         | {"PYTHONPATH": str(REPO)},
     )
     assert out.returncode == 0, out.stderr[-2000:]
-    assert out.stdout.strip().splitlines()[-1] == "False"
+    assert out.stdout.strip().splitlines()[-1] == "[]"
 
 
 def test_cuda_device_raises_without_cuda(monkeypatch):

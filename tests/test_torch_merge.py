@@ -242,6 +242,53 @@ def test_single_row_and_degenerate_columns(toy):
     _assert_all_equal(table, ids, lengths)
 
 
+def _needed_probes(table, pieces):
+    """The pairs one piece at a time must probe: its adjacent pairs, then
+    the two pairs each first-minimum merge touches."""
+    probes = []
+    for p in pieces:
+        seq = [int(i) for i in table.byte_to_id[np.frombuffer(p, np.uint8)]]
+
+        def rank(a, b):
+            probes.append((a, b))
+            return int(table.lookup(np.array([a]), np.array([b]))[0])
+
+        ranks = [rank(a, b) for a, b in zip(seq, seq[1:])]
+        while ranks and min(ranks) != MAX_RANK:
+            j = ranks.index(min(ranks))
+            seq[j : j + 2] = [ranks[j]]
+            del ranks[j]
+            if j > 0:
+                ranks[j - 1] = rank(seq[j - 1], seq[j])
+            if j < len(seq) - 1:
+                ranks[j] = rank(seq[j], seq[j + 1])
+    return probes
+
+
+def test_on_probe_sees_exactly_the_needed_pairs(gpt2_pair_table, lib_rs_text):
+    """The valid pairs the plain merge probes are those a piece-at-a-time
+    merge must probe, with their multiplicity; every other probe has a -1."""
+    table = gpt2_pair_table
+    text = lib_rs_text.encode("utf-8")
+    pieces = [text[s : s + n] for s, n in zip(range(0, 4000, 97), [0, 1, 2, 5, 9, 16] * 7)]
+    pieces += [b"aaaaaaaaaaaa", b"1111111111111111", b"00000"]
+    ids, lengths = _pack(pieces, table, 16, 64)
+    seen = []
+
+    def on_probe(left, right):
+        valid = (left >= 0) & (right >= 0)
+        seen.extend(zip(left[valid].tolist(), right[valid].tolist()))
+
+    out = merge_packed_torch(
+        device_table(table, "cpu"), torch.from_numpy(ids), torch.from_numpy(lengths),
+        slot_bits=table.slot_bits, max_probes=table.max_probes, on_probe=on_probe,
+    )
+    assert sorted(seen) == sorted(_needed_probes(table, pieces))
+    t_ids, t_n = _assert_all_equal(table, ids, lengths)
+    np.testing.assert_array_equal(out[0].numpy(), t_ids)
+    np.testing.assert_array_equal(out[1].numpy(), t_n)
+
+
 # -- merge: the Pallas kernel's cases (interpret mode) ---------------------
 
 
@@ -311,6 +358,49 @@ def test_wrapper_cpu_route_is_plain_and_launches_nothing(toy, monkeypatch):
     np.testing.assert_array_equal(out_n.numpy(), want_n)
     # The output never aliases the input tile.
     assert out_ids.data_ptr() != ids.__array_interface__["data"][0]
+
+
+def test_first_kernel_wrapper_cpu_route_is_plain(toy):
+    """merge_packed_v1 takes the same operands and, on the CPU, the same
+    plain route; it counts no launch of either kernel."""
+    _vocab, table = toy
+    ids, lengths = _pack([b"abcdef", b"bcd", b"", b"x"], table, 8, 256)
+    kw = dict(slot_bits=table.slot_bits, max_probes=table.max_probes)
+    before = (merge_cuda.LAUNCHES, merge_cuda.V1_LAUNCHES)
+    out_ids, out_n = merge_cuda.merge_packed_v1(
+        device_table(table, "cpu"), torch.from_numpy(ids), torch.from_numpy(lengths), **kw
+    )
+    assert (merge_cuda.LAUNCHES, merge_cuda.V1_LAUNCHES) == before
+    want_ids, want_n = merge_packed_numpy(ids, lengths, table)
+    np.testing.assert_array_equal(out_ids.numpy(), want_ids)
+    np.testing.assert_array_equal(out_n.numpy(), want_n)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        merge_cuda.merge_packed_v1(
+            device_table(table, "cpu"), torch.from_numpy(ids[:, :100].copy()),
+            torch.from_numpy(lengths[:100].copy()), **kw
+        )
+
+
+def test_wrapper_names_its_length_limit(toy):
+    """L up to MAX_L merges; one row more raises before any work, on every
+    device, and names the limit."""
+    _vocab, table = toy
+    tab = device_table(table, "cpu")
+    kw = dict(slot_bits=table.slot_bits, max_probes=table.max_probes)
+    L = merge_cuda.MAX_L
+    assert L >= 2048
+    ids = np.full((L + 1, 128), -1, np.int32)
+    ids[:6, 0] = table.byte_to_id[np.frombuffer(b"abcdef", np.uint8)]
+    lengths = np.zeros(128, np.int32)
+    lengths[0] = 6
+    out_ids, out_n = merge_cuda.merge_packed(
+        tab, torch.from_numpy(ids[:L].copy()), torch.from_numpy(lengths), **kw
+    )
+    want_ids, want_n = merge_packed_numpy(ids[:16], lengths, table)
+    np.testing.assert_array_equal(out_ids.numpy()[:16], want_ids)
+    np.testing.assert_array_equal(out_n.numpy(), want_n)
+    with pytest.raises(ValueError, match=f"MAX_L = {L}"):
+        merge_cuda.merge_packed(tab, torch.from_numpy(ids), torch.from_numpy(lengths), **kw)
 
 
 def test_wrapper_rejects_bad_operands(toy):

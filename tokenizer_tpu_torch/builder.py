@@ -10,11 +10,10 @@ from __future__ import annotations
 
 from typing import Mapping, Optional
 
-from tokenizer_tpu.models.registry import encoding_name_for_model, get_encoding_spec
-from tokenizer_tpu.utils.lru import BUILDER_CACHE_SIZE
-from tokenizer_tpu.vocab import Vocabulary, load_encoding_ranks
-
 from .gpu import GpuTokenizer
+from .models.registry import encoding_name_for_model, get_encoding_spec
+from .utils.lru import BUILDER_CACHE_SIZE
+from .vocab import Vocabulary, load_encoding_ranks
 
 __all__ = ["create_by_model_name", "create_by_encoder_name", "create_tokenizer"]
 

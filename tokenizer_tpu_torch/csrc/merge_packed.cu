@@ -4,29 +4,56 @@
 //   tokenizer_tpu/ops/merge_jax.py     merge_packed_jax, lookup_pairs (XLA)
 //   tokenizer_tpu/ops/merge_pallas.py  merge_packed_pallas -> _merge_block_kernel, _lookup (Pallas)
 // Semantics are exactly merge_packed_jax's: per column, merge the FIRST
-// minimum-rank adjacent pair (the merged id is that rank), shift the tail
-// up, re-probe only pairs (j-1, j) and (j, j+1), until no pair merges.
-// Unlike the Pallas kernel there is no 128-slot table cap: the probe
-// gathers straight from global memory.
+// minimum-rank adjacent pair (the merged id is that rank), re-probe only the
+// two pairs that touch the merged token, until no pair merges.  Unlike the
+// Pallas kernel there is no 128-slot table cap: the probe gathers straight
+// from global memory.
 //
-// Layout: ids/out_ids/rank are [L, B] int32, row-major, so row r of column c
-// lives at r * B + c.  One thread owns one column and a warp's 32 columns
-// are adjacent, so every row access of a warp is one coalesced transaction.
-// Each thread loops until ITS column converges (the Pallas kernel's
-// per-block convergence taken down to one column).
-//
-// Preconditions (the packer, tokenizer_tpu/ops/packing.py, guarantees them):
+// Layout: ids/out_ids are [L, B] int32, row-major, so row r of column c lives
+// at r * B + c.  Preconditions (the packer, ops/packing.py, guarantees them):
 // 0 <= lengths[c] <= L and ids[r, c] == -1 for r >= lengths[c].  Rows at or
-// beyond a column's length are copied, never shifted, so the full tile
-// equals merge_packed_jax's only under the -1 padding.  Lengths outside
-// [0, L] are clamped so that no access leaves the tile.
+// beyond a column's length are copied, never shifted, so the full tile equals
+// merge_packed_jax's only under the -1 padding.  Lengths outside [0, L] are
+// clamped so that no access leaves the tile.
 //
-// What bounds it on an H100: each probe is a chain of dependent 4-byte
-// gathers into a 6-25 MB pair table (gpt2 to o200k scale) that should stay
-// resident in the 50 MB L2, and each merge costs an O(L) argmin scan plus
-// an O(L) shift of ids and ranks through global memory.  Later work: a warp
-// per column for L >= 128 with the column in shared memory and a shuffle
-// argmin over (rank, index), and an L2 persisting window over the table.
+// Two kernels compute this:
+//
+// merge_packed_kernel (tt_merge_packed, the main path): one warp per column,
+// kWarpCols adjacent columns per block.
+// - What bounds it: memory.  The work is the tile (ids and lengths in, ids
+//   and counts out) and the table slots that its probes need, each read
+//   once: a probe per initial pair and two per merge, into the 6-25 MB
+//   table, which should stay resident in the 50 MB L2.  Integer work has
+//   no published peak.
+// - What the design does about it.  The block copies its [L, kWarpCols]
+//   slab into shared memory once, with plain coalesced loads (each row of
+//   kWarpCols int32 is one 32-byte sector), and writes it back the same way;
+//   between the two, a column lives in shared memory as id[L], rank[L]
+//   (int32) and links nxt[L], prv[L] (int16), 12 bytes a row.  A merge never
+//   shifts: the right token becomes a tombstone and the left one is relinked
+//   past it, so live positions keep their order and the first minimum by
+//   position is the first minimum of the sequence (argmin's tie-break).  Each
+//   lane scans every 32nd rank; two warp reductions (__reduce_min_sync on the
+//   rank, then on the position among the lanes that hold it) give every
+//   lane the same (best, j), so the loop is warp-uniform.  The first probes
+//   are spread over the lanes; the two re-probes of a merge run on lanes 0
+//   and 1 in the same instructions.  A ballot prefix count compacts the live
+//   ids at the end.  B = 8192 gives 8,192 warps in 1,024 blocks, which fills
+//   the 132 SMs; the probe chains of many warps overlap.
+// - Measured on an H100 (PERF.md, tools/merge_kernel_scaling.py): a tile
+//   takes a few percent of its byte bound.  Its time follows the longest column's
+//   chain of merges, about 1 us a step (argmin, relink, a probe of up to
+//   three dependent L2 loads), and moves by at most 7% from L=64 up when
+//   the table starts out of L2, so latency, not bytes or the table's
+//   residency, holds it.
+// - L is at most kMaxL (shared memory: 12 B x kWarpCols x 2,052 = 197 KB of
+//   the 227 KB a block may hold, above 48 KB only after
+//   cudaFuncSetAttribute).
+//
+// merge_packed_v1_kernel (tt_merge_packed_v1): the port's first kernel, kept
+// so that the two can be timed within one process; nothing on the main path
+// launches it.  One thread per column and 128 columns per block, an O(L)
+// argmin, id shift and rank shift per merge through an [L, B] global scratch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -34,8 +61,19 @@
 namespace {
 
 constexpr int kMaxRank = 0x7FFFFFFF;
-constexpr int kMergeThreads = 128;
+constexpr int kV1Threads = 128;
 constexpr int kLookupThreads = 256;
+constexpr int kWarpCols = 8;  // columns (one warp each) per block
+constexpr int kWarpThreads = 32 * kWarpCols;
+constexpr int kMaxL = 2048;
+constexpr short kDead = -2;  // prv[] of a merged-away position
+constexpr unsigned kFull = 0xFFFFFFFFu;
+
+// Column stride in shared memory: L rounded up to 32, plus 4, so that the
+// kWarpCols columns of one slab row fall in distinct banks.
+__host__ __device__ constexpr int col_stride(int L) { return (L + 31) / 32 * 32 + 4; }
+
+constexpr size_t smem_bytes(int L) { return (size_t)12 * kWarpCols * col_stride(L); }
 
 // (left, right) -> merged id, kMaxRank on a miss or a negative id.  The
 // uint32 Murmur mix and Fibonacci shift of ops/pair_table.py hash_pair_u32,
@@ -59,13 +97,115 @@ __device__ __forceinline__ int probe(const int* __restrict__ kl,
   return kMaxRank;
 }
 
-__global__ void __launch_bounds__(kMergeThreads)
+__global__ void __launch_bounds__(kWarpThreads)
     merge_packed_kernel(const int* __restrict__ kl, const int* __restrict__ kr,
                         const int* __restrict__ vv, int slot_bits, int max_probes,
                         const int* __restrict__ ids, const int* __restrict__ lengths,
-                        int* __restrict__ out_ids, int* __restrict__ out_n,
-                        int* __restrict__ rank, int L, int B) {
-  const int col = blockIdx.x * kMergeThreads + threadIdx.x;
+                        int* __restrict__ out_ids, int* __restrict__ out_n, int L, int B) {
+  extern __shared__ int smem[];
+  __shared__ int s_n[kWarpCols];   // clamped length of each column
+  __shared__ int s_nf[kWarpCols];  // its length after the merges
+  const int S = col_stride(L);
+  const int w = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int c0 = blockIdx.x * kWarpCols;
+  const size_t stride = (size_t)B;
+  int* ids_s = smem;                     // [kWarpCols][S] token ids
+  int* rank_s = smem + kWarpCols * S;    // [kWarpCols][S] rank of (p, nxt[p])
+  short* nxt_s = reinterpret_cast<short*>(smem + 2 * kWarpCols * S);
+  short* prv_s = nxt_s + kWarpCols * S;
+
+  // The block's [L, kWarpCols] slab, one 32-byte sector per row.
+  for (int e = threadIdx.x; e < L * kWarpCols; e += kWarpThreads) {
+    const int r = e / kWarpCols, cw = e % kWarpCols;
+    ids_s[cw * S + r] = ids[r * stride + c0 + cw];
+  }
+
+  int* id = ids_s + w * S;
+  int* rank = rank_s + w * S;
+  short* nxt = nxt_s + w * S;
+  short* prv = prv_s + w * S;
+  int n = lengths[c0 + w];
+  n = n < 0 ? 0 : (n > L ? L : n);
+  __syncthreads();
+
+  // Links, and the first n - 1 probes spread over the lanes.
+  for (int r = lane; r < n; r += 32) {
+    nxt[r] = (short)(r + 1);
+    prv[r] = (short)(r - 1);
+    rank[r] = r + 1 < n ? probe(kl, kr, vv, slot_bits, max_probes, id[r], id[r + 1]) : kMaxRank;
+  }
+  __syncwarp();
+
+  while (true) {
+    // First minimum: each lane's own over every 32nd position (strict <,
+    // positions ascending), then the least position among the lanes that
+    // hold the warp's minimum.  Tombstones and the last live token hold
+    // kMaxRank.
+    unsigned best = kMaxRank, pos = kFull;
+    for (int r = lane; r < n; r += 32) {
+      const unsigned v = (unsigned)rank[r];
+      if (v < best) {
+        best = v;
+        pos = r;
+      }
+    }
+    const unsigned wbest = __reduce_min_sync(kFull, best);
+    if (wbest == (unsigned)kMaxRank) break;
+    const int i = (int)__reduce_min_sync(kFull, best == wbest ? pos : kFull);
+    const int k = nxt[i];  // merged into i
+    const int m = nxt[k];  // i's new right neighbour (n if none)
+    const int p = prv[i];  // i's left neighbour (-1 if none)
+    __syncwarp();          // every lane has read the links
+    if (lane == 0) {
+      id[i] = (int)wbest;
+      rank[k] = kMaxRank;
+      prv[k] = kDead;
+      nxt[i] = (short)m;
+      if (m < n) prv[m] = (short)i;
+    }
+    if (lane < 2) {  // lane 0 re-probes (p, i), lane 1 (i, m), together
+      const int left = lane == 0 ? (p >= 0 ? id[p] : -1) : (int)wbest;
+      const int right = lane == 0 ? (int)wbest : (m < n ? id[m] : -1);
+      const int dst = lane == 0 ? p : i;
+      const int v = probe(kl, kr, vv, slot_bits, max_probes, left, right);
+      if (dst >= 0) rank[dst] = v;
+    }
+    __syncwarp();
+  }
+
+  // Compact the live ids, in order, into rank[0, count).
+  int count = 0;
+  for (int base = 0; base < n; base += 32) {
+    const int r = base + lane;
+    const bool live = r < n && prv[r] != kDead;
+    const unsigned bal = __ballot_sync(kFull, live);
+    if (live) rank[count + __popc(bal & ((1u << lane) - 1u))] = id[r];
+    count += __popc(bal);
+  }
+  if (lane == 0) {
+    s_n[w] = n;
+    s_nf[w] = count;
+    out_n[c0 + w] = count;
+  }
+  __syncthreads();
+
+  // Rows 0..count-1 the merged ids, then -1 up to the clamped length, then
+  // the rows beyond it as they came in.
+  for (int e = threadIdx.x; e < L * kWarpCols; e += kWarpThreads) {
+    const int r = e / kWarpCols, cw = e % kWarpCols;
+    out_ids[r * stride + c0 + cw] =
+        r < s_nf[cw] ? rank_s[cw * S + r] : (r < s_n[cw] ? -1 : ids_s[cw * S + r]);
+  }
+}
+
+__global__ void __launch_bounds__(kV1Threads)
+    merge_packed_v1_kernel(const int* __restrict__ kl, const int* __restrict__ kr,
+                           const int* __restrict__ vv, int slot_bits, int max_probes,
+                           const int* __restrict__ ids, const int* __restrict__ lengths,
+                           int* __restrict__ out_ids, int* __restrict__ out_n,
+                           int* __restrict__ rank, int L, int B) {
+  const int col = blockIdx.x * kV1Threads + threadIdx.x;
   if (col >= B) return;
   const size_t stride = (size_t)B;
   const int* src = ids + col;
@@ -120,20 +260,40 @@ __global__ void __launch_bounds__(kLookupThreads)
 
 extern "C" {
 
-// Launch the merge of one [L, B] tile on `stream`; B must be a positive
-// multiple of 128.  rank_scratch is [L, B] int32 that the caller allocates.
+// Launch the merge of one [L, B] tile on `stream` (the warp-per-column
+// kernel); 1 <= L <= kMaxL (2048) and B a positive multiple of 8.
 // Returns cudaGetLastError() after the launch (0 on success).
 int tt_merge_packed(const int* kl, const int* kr, const int* vv, int slot_bits,
                     int max_probes, const int* ids, const int* lengths, int* out_ids,
-                    int* out_n, int* rank_scratch, int L, int B, void* stream) {
-  if (L <= 0 || B <= 0 || B % kMergeThreads != 0 || slot_bits < 1 || slot_bits > 31)
+                    int* out_n, int L, int B, void* stream) {
+  if (L <= 0 || L > kMaxL || B <= 0 || B % kWarpCols != 0 || slot_bits < 1 ||
+      slot_bits > 31)
     return (int)cudaErrorInvalidValue;
-  merge_packed_kernel<<<B / kMergeThreads, kMergeThreads, 0, (cudaStream_t)stream>>>(
+  const size_t smem = smem_bytes(L);
+  if (smem > 48 * 1024) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        merge_packed_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (rc != cudaSuccess) return (int)rc;
+  }
+  merge_packed_kernel<<<B / kWarpCols, kWarpThreads, smem, (cudaStream_t)stream>>>(
+      kl, kr, vv, slot_bits, max_probes, ids, lengths, out_ids, out_n, L, B);
+  return (int)cudaGetLastError();
+}
+
+// Launch the port's first merge kernel (one thread per column) on one tile;
+// B must be a positive multiple of 128.  rank_scratch is [L, B] int32 that
+// the caller allocates.  Returns cudaGetLastError() after the launch.
+int tt_merge_packed_v1(const int* kl, const int* kr, const int* vv, int slot_bits,
+                       int max_probes, const int* ids, const int* lengths, int* out_ids,
+                       int* out_n, int* rank_scratch, int L, int B, void* stream) {
+  if (L <= 0 || B <= 0 || B % kV1Threads != 0 || slot_bits < 1 || slot_bits > 31)
+    return (int)cudaErrorInvalidValue;
+  merge_packed_v1_kernel<<<B / kV1Threads, kV1Threads, 0, (cudaStream_t)stream>>>(
       kl, kr, vv, slot_bits, max_probes, ids, lengths, out_ids, out_n, rank_scratch, L, B);
   return (int)cudaGetLastError();
 }
 
-// Probe n pairs on `stream` (the merge kernel's probe, exposed for checks).
+// Probe n pairs on `stream` (the merge kernels' probe, exposed for checks).
 int tt_lookup_pairs(const int* kl, const int* kr, const int* vv, int slot_bits,
                     int max_probes, const int* left, const int* right, int* out,
                     long long n, void* stream) {

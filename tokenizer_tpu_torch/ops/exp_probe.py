@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import time
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -28,7 +29,17 @@ from .exp_probe_torch import (
 )
 from .merge_torch import device_table, lookup_pairs_torch
 
-__all__ = ["ARMS", "SHAPE", "arm_calls", "device_us", "l2_for", "make_probes", "median_ms", "run_arms"]
+__all__ = [
+    "ARMS",
+    "SHAPE",
+    "arm_calls",
+    "device_us",
+    "l2_for",
+    "make_probes",
+    "median_ms",
+    "queued_ms",
+    "run_arms",
+]
 
 #: One merge wave's worth of probes (2,048), the JAX runners' tile.
 SHAPE = (16, 128)
@@ -83,6 +94,34 @@ def median_ms(fn: Callable[[], object], reps: int = REPS) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return sorted(times)[len(times) // 2]
+
+
+def queued_ms(fn: Callable[[], object], reps: int = REPS) -> float:
+    """Device ms per ``fn()`` call, without the host's enqueue time.
+
+    ``reps`` calls are queued behind a sleep kernel that outlasts their
+    enqueue, and CUDA events time them back to back; the result is that
+    time over ``reps``.  ``fn`` must not wait for the device.  Unlike the
+    profiler's rows (:func:`device_us`), nothing here can be dropped.
+    """
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    # Twice the enqueue time at 2 GHz (the SM clock is at most 1.98 GHz),
+    # plus 1 ms, so that the sleep ends after the last call is queued.
+    torch.cuda._sleep(int((2 * enqueue_s + 1e-3) * 2e9))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def device_us(fn: Callable[[], object], reps: int = REPS) -> Optional[float]:
@@ -155,9 +194,12 @@ def run_arms(table, device, shape=SHAPE, reps: int = REPS) -> List[dict]:
     ``PairTable.lookup``).  On a CUDA device it also has ``bit_exact`` (the
     kernel does); ``ms`` and ``plain_ms``, medians of ``reps`` CUDA-event
     timings of one call after a warm-up, with the table warm in L2 (for
-    calls of a few µs on the card these measure the host's enqueue); and
-    ``device_us`` and ``plain_device_us`` from :func:`device_us`.  K4's arm
-    runs inside :func:`.probe_cuda.persisting_l2` sized to its planes.
+    calls of a few µs on the card these measure the host's enqueue);
+    ``device_us``, the kernel's device time per call from
+    :func:`queued_ms`; and ``plain_device_us``, the plain version's summed
+    device rows from :func:`device_us` (its host time, milliseconds a
+    call, is far longer than its device time, so it is not queued).  K4's
+    arm runs inside :func:`.probe_cuda.persisting_l2` sized to its planes.
     """
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -180,7 +222,7 @@ def run_arms(table, device, shape=SHAPE, reps: int = REPS) -> List[dict]:
                 got = kernel()
                 rec["bit_exact"] = bool(np.array_equal(got.cpu().numpy(), want))
                 rec["ms"] = median_ms(kernel, reps)
-                rec["device_us"] = device_us(kernel, reps)
+                rec["device_us"] = queued_ms(kernel, reps) * 1e3
             rec["plain_ms"] = median_ms(plain, reps)
             rec["plain_device_us"] = device_us(plain, reps)
         records.append(rec)

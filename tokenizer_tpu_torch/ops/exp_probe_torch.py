@@ -27,9 +27,8 @@ from typing import Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from tokenizer_tpu.ops.pair_table import MAX_RANK
-
 from .merge_torch import hash_slots
+from .pair_table import MAX_RANK
 
 __all__ = [
     "LANES",

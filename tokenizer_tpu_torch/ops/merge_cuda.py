@@ -1,4 +1,4 @@
-"""Wrappers of the hand-written CUDA merge kernel (``csrc/merge_packed.cu``).
+"""Wrappers of the hand-written CUDA merge kernels (``csrc/merge_packed.cu``).
 
 :func:`merge_packed` keeps the JAX package's layout: an ``[L, B]`` int32
 tile and ``[B]`` lengths in, ``(out_ids [L, B], out_n [B])`` out.  A CPU
@@ -16,14 +16,29 @@ import torch
 
 from .merge_torch import lookup_pairs_torch, merge_packed_torch
 
-__all__ = ["merge_packed", "lookup_pairs", "LAUNCHES", "LOOKUP_LAUNCHES", "LANE"]
+__all__ = [
+    "merge_packed",
+    "merge_packed_v1",
+    "lookup_pairs",
+    "LAUNCHES",
+    "V1_LAUNCHES",
+    "LOOKUP_LAUNCHES",
+    "LANE",
+    "MAX_L",
+]
 
-#: Columns per thread block; the packer's lane quantum
-#: (tokenizer_tpu/ops/packing.py LANE) already makes every B a multiple.
+#: The B quantum of a tile: the first kernel's columns per block, and
+#: the packer's lane quantum (ops/packing.py LANE), which makes every B a
+#: multiple of it.
 LANE = 128
+#: The largest L of :func:`merge_packed` (``kMaxL`` in
+#: ``csrc/merge_packed.cu``).
+MAX_L = 2048
 
-#: Launches of the merge kernel / of the probe kernel in this process.
+#: Launches of the merge kernel, of the first merge kernel and of the
+#: probe kernel in this process.
 LAUNCHES = 0
+V1_LAUNCHES = 0
 LOOKUP_LAUNCHES = 0
 
 _TAB_KEYS = ("key_left", "key_right", "values")
@@ -50,9 +65,28 @@ def _check_tab(tab: Dict[str, torch.Tensor], device: torch.device) -> None:
             raise ValueError("pair-table arrays differ in length")
 
 
+def _tab_ptrs(tab: Dict[str, torch.Tensor]):
+    return tuple(tab[k].data_ptr() for k in _TAB_KEYS)
+
+
 def _raise_on(lib, rc: int, what: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{what} launch failed: {lib.tt_error_string(rc).decode()} ({rc})")
+
+
+def _check_tile(tab, ids: torch.Tensor, lengths: torch.Tensor) -> Tuple[int, int]:
+    device = ids.device
+    _check_int32("ids", ids, 2, device)
+    L, B = ids.shape
+    _check_int32("lengths", lengths, 1, device)
+    if lengths.shape[0] != B:
+        raise ValueError(f"lengths has {lengths.shape[0]} entries for {B} columns")
+    if L < 1 or B < 1 or B % LANE:
+        raise ValueError(f"tile [{L}, {B}]: need L >= 1 and B a positive multiple of {LANE}")
+    _check_tab(tab, device)
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"merge_packed runs on cpu or cuda tensors, not {device}")
+    return L, B
 
 
 def merge_packed(
@@ -65,39 +99,74 @@ def merge_packed(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Merge a packed [L, B] tile; returns (out_ids [L, B], out_n [B]).
 
-    Preconditions, which :func:`tokenizer_tpu.ops.packing.pack_spans`
+    On a CUDA tensor, one launch of the warp-per-column kernel; ``L`` may
+    be at most :data:`MAX_L` (its columns live in shared memory).
+    Preconditions, which :func:`tokenizer_tpu_torch.ops.packing.pack_spans`
     meets: ``0 <= lengths <= L`` and every row at or beyond a column's
     length holds -1.  The kernel never shifts those rows, so the full
     output tile equals ``merge_packed_jax``'s only under that padding.
     """
     global LAUNCHES
-    device = ids.device
-    _check_int32("ids", ids, 2, device)
-    L, B = ids.shape
-    _check_int32("lengths", lengths, 1, device)
-    if lengths.shape[0] != B:
-        raise ValueError(f"lengths has {lengths.shape[0]} entries for {B} columns")
-    if L < 1 or B < 1 or B % LANE:
-        raise ValueError(f"tile [{L}, {B}]: need L >= 1 and B a positive multiple of {LANE}")
-    _check_tab(tab, device)
-    if device.type == "cpu":
+    L, B = _check_tile(tab, ids, lengths)
+    if L > MAX_L:
+        raise ValueError(
+            f"tile [{L}, {B}]: L may be at most MAX_L = {MAX_L} (the merge kernel "
+            "keeps each column in shared memory)"
+        )
+    if ids.device.type == "cpu":
         return merge_packed_torch(
             tab, ids, lengths, slot_bits=slot_bits, max_probes=max_probes
         )
-    if device.type != "cuda":
-        raise ValueError(f"merge_packed runs on cpu or cuda tensors, not {device}")
+    from ..runtime.build import load_library
+
+    lib = load_library()
+    out_ids = torch.empty_like(ids)
+    out_n = torch.empty_like(lengths)
+    with torch.cuda.device(ids.device):
+        rc = lib.tt_merge_packed(
+            *_tab_ptrs(tab),
+            slot_bits,
+            max_probes,
+            ids.data_ptr(),
+            lengths.data_ptr(),
+            out_ids.data_ptr(),
+            out_n.data_ptr(),
+            L,
+            B,
+            torch.cuda.current_stream(ids.device).cuda_stream,
+        )
+    _raise_on(lib, rc, "merge_packed")
+    LAUNCHES += 1
+    return out_ids, out_n
+
+
+def merge_packed_v1(
+    tab: Dict[str, torch.Tensor],
+    ids: torch.Tensor,
+    lengths: torch.Tensor,
+    *,
+    slot_bits: int,
+    max_probes: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`merge_packed` through the port's first kernel (one thread per
+    column, ranks in an ``[L, B]`` global scratch), kept so that the two
+    kernels can be timed within one process.  Nothing on the main path
+    calls it.  Any ``L >= 1``."""
+    global V1_LAUNCHES
+    L, B = _check_tile(tab, ids, lengths)
+    if ids.device.type == "cpu":
+        return merge_packed_torch(
+            tab, ids, lengths, slot_bits=slot_bits, max_probes=max_probes
+        )
     from ..runtime.build import load_library
 
     lib = load_library()
     out_ids = torch.empty_like(ids)
     out_n = torch.empty_like(lengths)
     rank = torch.empty_like(ids)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.tt_merge_packed(
-            tab["key_left"].data_ptr(),
-            tab["key_right"].data_ptr(),
-            tab["values"].data_ptr(),
+    with torch.cuda.device(ids.device):
+        rc = lib.tt_merge_packed_v1(
+            *_tab_ptrs(tab),
             slot_bits,
             max_probes,
             ids.data_ptr(),
@@ -107,10 +176,10 @@ def merge_packed(
             rank.data_ptr(),
             L,
             B,
-            stream,
+            torch.cuda.current_stream(ids.device).cuda_stream,
         )
-    _raise_on(lib, rc, "merge_packed")
-    LAUNCHES += 1
+    _raise_on(lib, rc, "merge_packed_v1")
+    V1_LAUNCHES += 1
     return out_ids, out_n
 
 
@@ -146,9 +215,7 @@ def lookup_pairs(
     lib = load_library()
     with torch.cuda.device(device):
         rc = lib.tt_lookup_pairs(
-            tab["key_left"].data_ptr(),
-            tab["key_right"].data_ptr(),
-            tab["values"].data_ptr(),
+            *_tab_ptrs(tab),
             slot_bits,
             max_probes,
             left.data_ptr(),

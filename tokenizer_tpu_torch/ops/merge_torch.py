@@ -11,19 +11,19 @@ It is the CPU route of :func:`tokenizer_tpu_torch.ops.merge_cuda.merge_packed`
 and the oracle the CUDA kernel is held to on the card.
 
 Torch on the CPU has no uint32 ``>>``, ``+`` or ``<``, so the Murmur mix
-of :func:`tokenizer_tpu.ops.pair_table.hash_pair_u32` runs in int64 with
+of :func:`.pair_table.hash_pair_u32` runs in int64 with
 every product split into 16-bit halves, which keeps each intermediate
 below 2**49 and reduces mod 2**32 without relying on int64 overflow.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-from tokenizer_tpu.ops.pair_table import MAX_RANK
+from .pair_table import MAX_RANK
 
 __all__ = ["device_table", "hash_slots", "lookup_pairs_torch", "merge_packed_torch"]
 
@@ -36,8 +36,10 @@ _U32 = 0xFFFFFFFF
 def device_table(table, device) -> Dict[str, torch.Tensor]:
     """The pair table's arrays as contiguous int32 tensors on ``device``.
 
-    ``table`` is a :class:`~tokenizer_tpu.ops.pair_table.PairTable` or the
-    dict that :func:`tokenizer_tpu.ops.merge_jax.device_table` returns.
+    ``table`` is a :class:`~.pair_table.PairTable` (the port's or the JAX
+    package's: anything with those three attributes) or a dict of the
+    three arrays, like the one ``tokenizer_tpu.ops.merge_jax.device_table``
+    returns.
     """
     get = table.__getitem__ if isinstance(table, dict) else lambda k: getattr(table, k)
     return {
@@ -102,8 +104,15 @@ def merge_packed_torch(
     *,
     slot_bits: int,
     max_probes: int,
+    on_probe: Optional[Callable[[torch.Tensor, torch.Tensor], None]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Merge a packed [L, B] int32 tile. Returns (out_ids [L, B], out_n [B])."""
+    """Merge a packed [L, B] int32 tile. Returns (out_ids [L, B], out_n [B]).
+
+    Only the probes the merge needs carry two valid ids: the adjacent
+    pairs inside each piece, then the two pairs each merge touches.  Every
+    other pair probed has a -1 in it and misses.  ``on_probe(left, right)``,
+    if given, sees each probed pair tensor.
+    """
     L, B = ids.shape
     dev = ids.device
     ids = ids.clone()  # the result never aliases the caller's tile
@@ -114,13 +123,15 @@ def merge_packed_torch(
     pad_rank = torch.full((1, B), MAX_RANK, dtype=torch.int32, device=dev)
 
     def probe(left, right):
+        if on_probe is not None:
+            on_probe(left, right)
         return lookup_pairs_torch(tab, slot_bits, max_probes, left, right)
 
     if L >= 2:
-        rank = probe(ids, torch.cat([ids[1:], pad_ids]))
+        inside = row < n[None, :] - 1
+        rank = probe(torch.where(inside, ids, -1), torch.cat([ids[1:], pad_ids]))
     else:
         rank = torch.full((L, B), MAX_RANK, dtype=torch.int32, device=dev)
-    rank = torch.where(row >= n[None, :] - 1, MAX_RANK, rank)
 
     it = 0
     while it < L - 1 and int(rank.min()) != MAX_RANK:
@@ -142,8 +153,8 @@ def merge_packed_torch(
         id_jm1 = ids[(jl - 1).clamp(min=0), cols]
         id_j = ids[jl, cols]
         id_jp1 = ids[(jl + 1).clamp(max=L - 1), cols]
-        probe_left = torch.where(j > 0, probe(id_jm1, id_j), MAX_RANK)
-        probe_right = torch.where(j < n - 1, probe(id_j, id_jp1), MAX_RANK)
+        probe_left = probe(torch.where(active & (j > 0), id_jm1, -1), id_j)
+        probe_right = probe(id_j, torch.where(active & (j < n - 1), id_jp1, -1))
 
         rank_shift = torch.cat([rank[1:], pad_rank])
         rank_new = torch.where(

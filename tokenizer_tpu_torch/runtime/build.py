@@ -4,11 +4,11 @@ The kernels have a plain C interface: ``nvcc`` compiles each source for
 Hopper (``sm_90a``), all sources at once, and links them into one shared
 library, which is loaded with ``ctypes``.
 Nothing includes PyTorch's headers, so a build takes seconds.  The
-library lands in ``<cache>/cuda/``, where ``<cache>`` is the JAX
-package's cache directory (``TOKENIZER_TPU_CACHE_DIR``, by default
-``~/.cache/tokenizer_tpu``; the native scanner builds beside it in
-``<cache>/native/``).  It is named by a hash of the sources and flags, so
-an edit rebuilds and an unchanged tree reuses it.  A missing ``nvcc`` or
+library lands in ``<cache>/cuda/``, where ``<cache>`` is
+``TOKENIZER_TPU_CACHE_DIR`` (by default ``~/.cache/tokenizer_tpu``; the
+port's native scanner builds beside it in ``<cache>/native_torch/``).
+It is named by a hash of the sources and flags, so an edit rebuilds and
+an unchanged tree reuses it.  A missing ``nvcc`` or
 a failed compile raises: there is no fallback to the plain PyTorch
 version on a CUDA tensor.
 """
@@ -24,7 +24,7 @@ import threading
 from pathlib import Path
 from typing import Optional, Tuple
 
-from tokenizer_tpu.vocab import default_cache_dir
+from ..vocab import default_cache_dir
 
 __all__ = ["build_dir", "build_library", "load_library", "SOURCES", "NVCC_FLAGS"]
 
@@ -132,12 +132,14 @@ def load_library() -> ctypes.CDLL:
     with _LOCK:
         if _LIB is None:
             lib = ctypes.CDLL(str(build_library()[0]))
-            lib.tt_merge_packed.restype = _I
-            lib.tt_merge_packed.argtypes = [
+            merge = [
                 _P, _P, _P, _I, _I,  # key_left, key_right, values, slot_bits, max_probes
-                _P, _P, _P, _P, _P,  # ids, lengths, out_ids, out_n, rank_scratch
-                _I, _I, _P,  # L, B, stream
+                _P, _P, _P, _P,  # ids, lengths, out_ids, out_n
             ]
+            lib.tt_merge_packed.restype = _I
+            lib.tt_merge_packed.argtypes = merge + [_I, _I, _P]  # L, B, stream
+            lib.tt_merge_packed_v1.restype = _I
+            lib.tt_merge_packed_v1.argtypes = merge + [_P, _I, _I, _P]  # rank_scratch, L, B, stream
             probe = [
                 _P, _P, _P, _I, _I,  # key_left, key_right, values, slot_bits, max_probes
                 _P, _P, _P, ctypes.c_longlong,  # left, right, out, n

@@ -60,8 +60,8 @@ def main(argv=None) -> int:
     if args.tile < 1:
         raise SystemExit("--tile must be positive")
 
-    from tokenizer_tpu.vocab import Vocabulary
     from tokenizer_tpu_torch.ops.exp_probe import run_arms
+    from tokenizer_tpu_torch.vocab import Vocabulary
 
     table = Vocabulary.for_encoding(args.table, allow_fetch=False).pair_table()
     shape = (args.tile, 128)

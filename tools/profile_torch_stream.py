@@ -35,7 +35,7 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
 ROUTES = ("forced", "default", "host")
-#: methods timed in the profiled run (TpuTokenizer's host layers).
+#: methods timed in the profiled run (GpuTokenizer's host layers).
 TIMED = (
     "_native_encode_emit",
     "_register_new_uids_arrays",
