@@ -35,11 +35,27 @@ result line):
    kernels equal their plain PyTorch versions on a ``[16, 128]`` tile and
    ``PairTable.lookup`` on 65,536 pairs; then the experiment's own path,
    ``exp_probe.run_arms`` (``tools/exp_cuda_probe.py``), runs every arm
-   on both tables, bit-exact, with kernel and plain times.
+   on both tables, bit-exact, with kernel and plain times;
+7. corpus path: a 64 MB cl100k_synth corpus made from ``--seed``, one
+   file per document under ``build/``, goes (a) through
+   ``encode_corpus(iter_corpus_files([dir]), tok, out)`` on the card with
+   default routing and 8 MB chunks: the merge kernel must be launched and
+   every ``tokens_*.npz`` must equal a host-routed tokenizer's ids for
+   the same chunk; (b) a second run stopped by its document source after
+   its fourth chunk and then resumed must leave the same npz arrays
+   (their ``.npy`` members byte for byte: the zip headers carry a write
+   time); (c) ``python3 -m tokenizer_tpu_torch.cli corpus`` in a
+   subprocess on the card must write them too; (d) the CLI's
+   ``encode-file`` gives the 11,378 gpt2 ids of lib.rs.txt and ``bench``
+   its JSON; (e) ``runtime.profiler.trace`` around one forced
+   ``encode_batch`` of a fresh chunk, in a process of its own, writes a
+   trace that names ``merge_packed_kernel`` and shows one pinned
+   host-to-device copy per device wave.
 
 The merge kernels' launch counts are reset before phase 4 and read after
-phase 5 (the first merge kernel must not be launched there); the probe
-kernels' counts are reset just before ``run_arms`` and read after it.
+phase 5 (the first merge kernel must not be launched there), and reset
+again just before phase 7 (a) and read after it; the probe kernels'
+counts are reset just before ``run_arms`` and read after it.
 The last lines are the card's name and power limit, the
 ``{"kernels": [...]}`` record, and ``{"ok": true, "device": {...}}``.
 Builds go under ``build/`` in the checkout.  The script imports nothing
@@ -64,6 +80,9 @@ HOST_COLS = 1024
 LOOKUP_PAIRS = 65536
 CHUNK_DOCS = 256
 CORPUS_MB = 8.0
+CORPUS7_MB = 64.0
+#: phase 7 (b) stops its run when the document source reaches this chunk.
+STOP_CHUNK = 4
 REPS = 5
 KERNEL = "merge_packed"
 KERNEL_SOURCE = "tokenizer_tpu_torch/csrc/merge_packed.cu"
@@ -352,6 +371,229 @@ def probe_bound_us(table) -> float:
     return bound_us(3 * left.nbytes + table_bytes(table, left, right)[0])
 
 
+#: Phase 7 (e) in a process of its own: a torch.profiler session late in
+#: this one, after phase 6's sessions, left the merge kernel out of its
+#: trace on an H100.  argv: a JSON list of documents, the trace directory.
+TRACE_RUN = r"""
+import json, sys
+import torch
+import tokenizer_tpu_torch as tt
+from tokenizer_tpu_torch.ops import merge_cuda
+from tokenizer_tpu_torch.runtime.profiler import trace
+
+docs_path, log_dir = sys.argv[1:3]
+tok = tt.create_by_encoder_name("cl100k_synth", allow_fetch=False, device="cuda")
+tok._host_pp = float("inf")  # every wave to the card
+tok._host_wave_max = 0
+tok._ensure_device()
+docs = json.loads(open(docs_path, encoding="utf-8").read())
+with trace(log_dir):
+    tok.encode_batch(docs)
+    torch.cuda.synchronize()
+print(json.dumps({"launches": merge_cuda.LAUNCHES, "device_waves": tok.stats.device_waves}))
+"""
+
+
+def npz_arrays(out_dir: Path) -> dict:
+    """Every ``tokens_*.npz`` of a directory as {file: {member: bytes}}:
+    the arrays' ``.npy`` bytes (a zip header carries its write time)."""
+    import zipfile
+
+    got = {}
+    for f in sorted(out_dir.glob("tokens_*.npz")):
+        with zipfile.ZipFile(f) as z:
+            got[f.name] = {n: z.read(n) for n in sorted(z.namelist())}
+    return got
+
+
+def host_reference(name: str):
+    """Phase 5's reference: every wave to the native C++ heap merge."""
+    import tokenizer_tpu_torch as tt
+
+    ref = tt.create_by_encoder_name(name, allow_fetch=False, device="cpu")
+    ref._host_wave_max = sys.maxsize
+    return ref
+
+
+def corpus_phase(seed: int, seed_text: str, device, smi: str) -> dict:
+    """Phase 7, the corpus path; returns its launches and MB/s."""
+    import contextlib
+    import io
+    import shutil
+
+    import numpy as np
+    import torch
+
+    import tokenizer_tpu_torch as tt
+    from tokenizer_tpu_torch import cli
+    from tokenizer_tpu_torch.ops import merge_cuda
+    from tokenizer_tpu_torch.runtime import pipeline
+
+    work = ROOT / "build" / "phase7"
+    shutil.rmtree(work, ignore_errors=True)
+    corpus = work / "corpus"
+    corpus.mkdir(parents=True)
+    t0 = time.perf_counter()
+    made = gen_corpus(CORPUS7_MB, seed, seed_text)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for i, doc in enumerate(made):
+        (corpus / f"doc{i:06d}.txt").write_text(doc, encoding="utf-8")
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    docs = list(pipeline.iter_corpus_files([str(corpus)]))
+    read_s = time.perf_counter() - t0
+    nbytes = sum(len(d.encode("utf-8")) for d in docs)
+    chunks = list(pipeline._chunks(docs, 8 << 20, 0, 1))  # encode_corpus's own grouping
+    check(len(chunks) > STOP_CHUNK, f"the corpus makes only {len(chunks)} chunks")
+    print(f"phase 7 corpus: {len(docs)} files, {nbytes} bytes, {len(chunks)} chunks of "
+          f"8 MB; {gen_s:.3f} s to make, {write_s:.3f} s to write, {read_s:.3f} s to read "
+          "back with iter_corpus_files", flush=True)
+
+    def card_tok():
+        tok = tt.create_by_encoder_name("cl100k_synth", allow_fetch=False, device=device)
+        tok._ensure_device()  # table upload outside the timed region
+        return tok
+
+    # (a) default routing, default chunks, in process.
+    tok = card_tok()
+    merge_cuda.LAUNCHES = merge_cuda.V1_LAUNCHES = 0
+    t0 = time.perf_counter()
+    prog = pipeline.encode_corpus(pipeline.iter_corpus_files([str(corpus)]), tok, str(work / "a"))
+    torch.cuda.synchronize()
+    corpus_s = time.perf_counter() - t0
+    launches = merge_cuda.LAUNCHES
+    st = tok.stats.as_dict()
+    check(launches > 0 and st["device_pieces"] > 0,
+          f"encode_corpus did not reach the kernel ({launches} launches, {st['device_pieces']} pieces)")
+    check(merge_cuda.V1_LAUNCHES == 0, "encode_corpus launched the first merge kernel")
+    check(prog.chunks_done == len(chunks) and prog.bytes_in == nbytes,
+          f"encode_corpus: {prog.chunks_done} chunks, {prog.bytes_in} bytes")
+    ref = host_reference("cl100k_synth")
+    t0 = time.perf_counter()
+    for ci, chunk in enumerate(chunks):
+        want = ref.encode_batch(chunk)
+        offsets = np.zeros(len(want) + 1, np.int64)
+        np.cumsum([len(w) for w in want], out=offsets[1:])
+        z = np.load(work / "a" / f"tokens_s00000_c{ci:06d}.npz")
+        check(np.array_equal(z["offsets"], offsets) and np.array_equal(z["ids"], np.concatenate(want)),
+              f"encode_corpus chunk {ci} != the host-routed reference")
+    ref_s = time.perf_counter() - t0
+    check(ref.stats.device_pieces == 0, "the reference tokenizer used a device")
+    # The same chunks from memory through a fresh tokenizer: the encode
+    # alone, without the files.
+    t0 = time.perf_counter()
+    for _ in card_tok().encode_batch_stream(chunks):
+        pass
+    torch.cuda.synchronize()
+    stream_s = time.perf_counter() - t0
+    print(f"phase 7 (a) encode_corpus == host reference on {len(chunks)} chunks, {prog.docs} docs, "
+          f"{prog.tokens_out} tokens; {nbytes / corpus_s / 1e6:.3f} MB/s ({corpus_s:.3f} s; "
+          f"manifest seconds {prog.seconds:.3f}; the same chunks from memory: "
+          f"encode_batch_stream {nbytes / stream_s / 1e6:.3f} MB/s, host-routed reference "
+          f"encode_batch {nbytes / ref_s / 1e6:.3f} MB/s); "
+          f"device_waves {st['device_waves']}, device_pieces {st['device_pieces']}, "
+          f"host_wave_pieces {st['host_wave_pieces']}, fused_pieces {st['fused_pieces']}, "
+          f"unique_pieces {st['unique_pieces']}, host_fallback_pieces {st['host_fallback_pieces']}, "
+          f"device_blocking_s {st['device_blocking_s']:.4f}, host_wave_s {st['host_wave_s']:.4f}; "
+          f"launches {launches}; card {smi}", flush=True)
+    arrays = npz_arrays(work / "a")
+    manifest = work / "a" / "manifest_shard00000.json"
+    counters = {k: v for k, v in json.loads(manifest.read_text()).items() if k != "seconds"}
+
+    # (b) a run stopped by its document source, then resumed.
+    stop_at = sum(len(c) for c in chunks[:STOP_CHUNK])
+
+    class Stop(Exception):
+        pass
+
+    def stopping():
+        for k, doc in enumerate(pipeline.iter_corpus_files([str(corpus)])):
+            if k == stop_at:
+                raise Stop
+            yield doc
+
+    try:
+        pipeline.encode_corpus(stopping(), card_tok(), str(work / "b"))
+        fail("phase 7 (b): the stopped run did not stop")
+    except Stop:
+        pass
+    cut = pipeline.ShardProgress.load(work / "b" / "manifest_shard00000.json")
+    check(cut is not None and STOP_CHUNK - 1 <= cut.chunks_done < len(chunks),
+          f"phase 7 (b): the stopped run left {cut and cut.chunks_done} chunks")
+    pipeline.encode_corpus(pipeline.iter_corpus_files([str(corpus)]), card_tok(), str(work / "b"))
+    resumed = json.loads((work / "b" / "manifest_shard00000.json").read_text())
+    resumed.pop("seconds")
+    check(npz_arrays(work / "b") == arrays, "phase 7 (b): the resumed npz differ from (a)'s")
+    check(resumed == counters, f"phase 7 (b): counters {resumed} != {counters}")
+    sidecar = "manifest_shard00000.digests"
+    check((work / "b" / sidecar).read_bytes() == (work / "a" / sidecar).read_bytes(),
+          "phase 7 (b): digest sidecars differ")
+    print(f"phase 7 (b) stopped after {cut.chunks_done} of {len(chunks)} chunks, resumed: npz "
+          "arrays, counters and digests == (a)'s", flush=True)
+
+    # (c) the CLI in a subprocess on the card (inherits the build cache).
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "tokenizer_tpu_torch.cli", "corpus", str(corpus),
+         "--out", str(work / "c"), "--model", "cl100k_synth"],
+        cwd=str(ROOT), capture_output=True, text=True, timeout=600,
+    )
+    check(out.returncode == 0, f"phase 7 (c): CLI corpus failed: {out.stderr[-2000:]}")
+    report = out.stdout.strip().splitlines()[-1]
+    check(npz_arrays(work / "c") == arrays, "phase 7 (c): the CLI's npz differ from (a)'s")
+    check(json.loads(report)["global_tokens_out"] == prog.tokens_out, "phase 7 (c): token count")
+    print(f"phase 7 (c) CLI corpus == (a) ({time.perf_counter() - t0:.2f} s with start-up): "
+          f"{report}", flush=True)
+
+    # (d) the CLI's encode-file and bench, in process.
+    for argv in (
+        ["encode-file", "gpt2", str(ROOT / "tests" / "testdata" / "lib.rs.txt")],
+        ["bench", str(ROOT / "tests" / "testdata"), "--model", "gpt2", "--min-seconds", "2"],
+    ):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            check(cli.main(argv) == 0, f"phase 7 (d): {argv[0]} failed")
+        lines = buf.getvalue().strip().splitlines()
+        if argv[0] == "encode-file":
+            check(lines[0] == "tokens: 11378", f"phase 7 (d): encode-file printed {lines[0]!r}")
+        else:
+            check(json.loads(lines[-1])["tokens"] > 0, "phase 7 (d): bench counted no tokens")
+        print(f"phase 7 (d) {argv[0]}: {' | '.join(lines)}", flush=True)
+
+    # (e) the profiler around one forced device encode of a fresh chunk,
+    # in a fresh process (TRACE_RUN).
+    fresh = work / "fresh.json"
+    fresh.write_text(json.dumps(gen_corpus(0.5, seed + 5, seed_text)), encoding="utf-8")
+    out = subprocess.run(
+        [sys.executable, "-c", TRACE_RUN, str(fresh), str(work / "trace")],
+        cwd=str(ROOT), capture_output=True, text=True, timeout=300,
+    )
+    check(out.returncode == 0, f"phase 7 (e): the traced run failed: {out.stderr[-2000:]}")
+    run = json.loads(out.stdout.strip().splitlines()[-1])
+    traces = list((work / "trace").glob("*.pt.trace.json"))
+    check(len(traces) == 1, f"phase 7 (e): {len(traces)} trace files")
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    names = [e.get("name", "") for e in events if e.get("ph") == "X"]
+    kernels = sum("merge_packed_kernel" in n for n in names)
+    h2d = {kind: sum(n == f"Memcpy HtoD ({kind} -> Device)" for n in names)
+           for kind in ("Pinned", "Pageable")}
+    if not kernels:
+        from collections import Counter
+
+        print(f"phase 7 (e) trace event categories: "
+              f"{json.dumps(Counter(e.get('cat') for e in events))}", flush=True)
+    check(run["launches"] > 0, "phase 7 (e): the traced encode launched no merge kernel")
+    check(kernels > 0, "phase 7 (e): the trace does not name merge_packed_kernel")
+    check(h2d == {"Pinned": run["device_waves"], "Pageable": 0},
+          f"phase 7 (e): host-to-device copies {h2d} for {run['device_waves']} device waves")
+    print(f"phase 7 (e) trace {traces[0].relative_to(ROOT)}: {kernels} merge_packed_kernel rows "
+          f"for {run['launches']} launches, host-to-device copies {json.dumps(h2d)} for "
+          f"{run['device_waves']} device waves", flush=True)
+    return {"launches": launches, "MBps": nbytes / corpus_s / 1e6,
+            "ref_MBps": nbytes / ref_s / 1e6}
+
+
 def smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -449,9 +691,7 @@ def main() -> int:
     stream_launches = merge_cuda.LAUNCHES - before
     check(stream_launches > 0 and st["device_pieces"] > 0, "cl100k_synth stream did not reach the kernel")
 
-    # The reference: every wave to the native C++ heap merge, no card.
-    ref = tt.create_by_encoder_name("cl100k_synth", allow_fetch=False, device="cpu")
-    ref._host_wave_max = sys.maxsize
+    ref = host_reference("cl100k_synth")
     t0 = time.perf_counter()
     want = ref.encode_batch(docs)
     ref_s = time.perf_counter() - t0
@@ -512,6 +752,11 @@ def main() -> int:
           "the persisting L2 set-aside was not given back after K4")
     print(f"phase 6 launches in run_arms {json.dumps(probe_launches)}; "
           f"{time.perf_counter() - t6:.2f} s; card {smi}", flush=True)
+
+    # -- 7. corpus path ------------------------------------------------------
+    t7 = time.perf_counter()
+    corpus = corpus_phase(args.seed, seed_text, device, smi)
+    print(f"phase 7 {time.perf_counter() - t7:.2f} s", flush=True)
     leaked = sorted(m for m in sys.modules
                     if m in ("jax", "bench", "tokenizer_tpu") or m.startswith("tokenizer_tpu."))
     check(not leaked, f"imported {leaked}")
@@ -522,7 +767,11 @@ def main() -> int:
         "route": "cuda",
         "source": KERNEL_SOURCE,
         "replaces": REPLACES,
-        "launches": launches,
+        "launches": launches + corpus["launches"],
+        "launches_by_path": {
+            "encode_batch + encode_batch_stream (phases 4-5)": launches,
+            "encode_corpus (phase 7a)": corpus["launches"],
+        },
         "max_abs_err": max(r["max_abs_err"] for r in k_res.values()),
         # one [L, 8192] tile of each bucket, cl100k_synth table, summed;
         # ms: device time (exp_probe.queued_ms), plain_ms: CUDA events
@@ -536,6 +785,8 @@ def main() -> int:
         "plain_ms_by_bucket": {f"{v}/L{L}": r["plain_ms"][L] for v, r in k_res.items() for L in BUCKETS},
         "bound_us_by_bucket": {f"{v}/L{L}": r["bound_us"][L] for v, r in k_res.items() for L in BUCKETS},
         "cold_stream_MBps": nbytes / cold_s / 1e6,
+        "corpus_MBps": corpus["MBps"],
+        "corpus_host_reference_MBps": corpus["ref_MBps"],
     }
     probes = []
     for arm, source, replaces in exp_probe.ARMS:

@@ -351,3 +351,74 @@ def test_persisting_l2_limits_and_reset(cuda):
         now = probe_cuda.l2_limits(cuda)["persisting_l2_bytes"]
         assert want <= now <= cap and now != before
     assert probe_cuda.l2_limits(cuda)["persisting_l2_bytes"] == before
+
+
+# -- the corpus path: one pinned upload per wave, encode_corpus ------------
+
+
+def _forced_card(name: str):
+    require_vocab(name)
+    import tokenizer_tpu_torch as tt
+
+    tok = tt.create_by_encoder_name(name, allow_fetch=False, device="cuda")
+    tok._host_pp = float("inf")
+    tok._host_wave_max = 0
+    tok._ensure_device()  # the table's upload stays out of what is counted
+    torch.cuda.synchronize()
+    return tok
+
+
+def test_device_wave_uploads_once_from_pinned_memory(cuda, lib_rs_text):
+    """One forced device wave of several tiles: torch.profiler sees one
+    host-to-device copy, from page-locked memory, and one copy back."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    tok = _forced_card("gpt2")
+    texts = [lib_rs_text[:8000], "1" * 100 + " " + "x" * 40, "好" * 30]
+    before = merge_cuda.LAUNCHES
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        got = tok.encode_batch(texts)
+        torch.cuda.synchronize()
+    assert tok.stats.device_waves == 1 and merge_cuda.LAUNCHES - before >= 3
+    device_copies = sorted(
+        e.name for e in prof.events() if e.device_type == DeviceType.CUDA and "Memcpy" in e.name
+    )
+    assert [n for n in device_copies if "HtoD" in n] == ["Memcpy HtoD (Pinned -> Device)"]
+    assert len([n for n in device_copies if "DtoH" in n]) == 1
+    import tokenizer_tpu_torch as tt
+
+    ref = tt.create_by_encoder_name("gpt2", allow_fetch=False, device="cpu")
+    assert [list(g) for g in got] == [ref.encode(t) for t in texts]
+
+
+def test_encode_corpus_on_card_equals_host_reference(cuda, tmp_path, lib_rs_text):
+    import sys
+
+    import tokenizer_tpu_torch as tt
+    from tokenizer_tpu_torch.runtime.pipeline import encode_corpus
+    from tokenizer_tpu_torch.runtime.profiler import ThroughputMeter
+
+    rng = np.random.default_rng(17)
+    text = lib_rs_text
+    docs = []
+    for k in range(60):
+        s = int(rng.integers(0, len(text) - 3000))
+        docs.append(text[s : s + int(rng.integers(200, 3000))] + f" zq{k}x {k * 7919}")
+    tok = _forced_card("cl100k_synth")
+    before = merge_cuda.LAUNCHES
+    meter = ThroughputMeter()
+    with meter:
+        prog = encode_corpus(iter(docs), tok, tmp_path / "card", chunk_bytes=20000)
+        meter.block_until_ready(tok._tab_dev)
+    assert merge_cuda.LAUNCHES > before and tok.stats.device_pieces > 0
+    assert prog.chunks_done > 2 and prog.docs == len(docs)
+    ref = tt.create_by_encoder_name("cl100k_synth", allow_fetch=False, device="cpu")
+    ref._host_wave_max = sys.maxsize
+    ref_prog = encode_corpus(iter(docs), ref, tmp_path / "host", chunk_bytes=20000)
+    assert ref.stats.device_pieces == 0
+    assert (ref_prog.chunks_done, ref_prog.tokens_out) == (prog.chunks_done, prog.tokens_out)
+    for f in sorted((tmp_path / "host").glob("*.npz")):
+        a, b = np.load(f), np.load(tmp_path / "card" / f.name)
+        np.testing.assert_array_equal(a["ids"], b["ids"])
+        np.testing.assert_array_equal(a["offsets"], b["offsets"])

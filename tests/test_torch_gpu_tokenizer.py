@@ -190,7 +190,10 @@ def test_python_split_path_and_force_host_vocab(plain_calls):
 
 
 def test_device_merge_of_one_tile(gpt2_pair):
-    """The single-tile launch hook, copied back, equals the NumPy model."""
+    """A one-tile wave through the launch hook, copied back, equals the
+    NumPy model."""
+    from types import SimpleNamespace
+
     from tokenizer_tpu.ops.merge_numpy import merge_packed_numpy
 
     tok, _host = gpt2_pair
@@ -199,10 +202,12 @@ def test_device_merge_of_one_tile(gpt2_pair):
     lengths = rng.integers(0, 17, 128).astype(np.int32)
     for c, n in enumerate(lengths):
         ids[:n, c] = tok.table.byte_to_id[rng.integers(97, 123, n)]
-    out_ids, out_n = tok._device_merge_async(ids, lengths)
+    tile = SimpleNamespace(ids=ids, lengths=lengths, n_real=128)
+    wave = tok._dispatch_tiles([tile])
+    ((out_rows, out_n),) = tok._bucket_out([tile], wave)
     want_ids, want_n = merge_packed_numpy(ids, lengths, tok.table)
-    np.testing.assert_array_equal(out_ids.cpu().numpy(), want_ids)
-    np.testing.assert_array_equal(out_n.cpu().numpy(), want_n)
+    np.testing.assert_array_equal(out_rows.T, want_ids)
+    np.testing.assert_array_equal(out_n, want_n)
 
 
 def test_small_waves_stay_on_host_by_default(gpt2_pair):

@@ -67,6 +67,12 @@ def test_port_files_cover_the_host_layers():
         "tokenizer_tpu_torch/ops/pair_table.py",
         "tokenizer_tpu_torch/ops/packing.py",
         "tokenizer_tpu_torch/runtime/native/__init__.py",
+        "tokenizer_tpu_torch/runtime/pipeline.py",
+        "tokenizer_tpu_torch/runtime/perf.py",
+        "tokenizer_tpu_torch/runtime/profiler.py",
+        "tokenizer_tpu_torch/parallel/__init__.py",
+        "tokenizer_tpu_torch/parallel/multihost.py",
+        "tokenizer_tpu_torch/cli.py",
     ):
         assert rel in PORT_FILES
 

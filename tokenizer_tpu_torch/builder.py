@@ -1,15 +1,18 @@
-"""Tokenizer builders for the port: model or encoder name -> GpuTokenizer.
+"""Tokenizer builders for the port: model or encoder name -> tokenizer.
 
 The same resolution as :mod:`tokenizer_tpu.builder` (registry pattern,
 rank file found offline first, extra specials merged over the
 encoding's table), returning a :class:`~tokenizer_tpu_torch.gpu.GpuTokenizer`
-on ``device``.
+on ``device`` (the card by default), or the host
+:class:`~tokenizer_tpu_torch.engine.TikTokenizer` for ``device=None``
+(the JAX package's ``use_tpu=False``).
 """
 
 from __future__ import annotations
 
 from typing import Mapping, Optional
 
+from .engine import TikTokenizer
 from .gpu import GpuTokenizer
 from .models.registry import encoding_name_for_model, get_encoding_spec
 from .utils.lru import BUILDER_CACHE_SIZE
@@ -25,9 +28,18 @@ def create_tokenizer(
     cache_size: int = BUILDER_CACHE_SIZE,
     device="cuda",
     **options,
-) -> GpuTokenizer:
+) -> TikTokenizer:
     """A GpuTokenizer over ``vocab`` (a Vocabulary, rank dict or rank-file
-    path); ``**options`` go to the constructor (``max_unique_rows=``)."""
+    path) on ``device``; ``**options`` go to its constructor
+    (``max_unique_rows=``).  ``device=None`` gives the host engine, which
+    takes no options: they raise there."""
+    if device is None:
+        if options:
+            raise TypeError(
+                "device-tokenizer options require a device: "
+                + ", ".join(sorted(options))
+            )
+        return TikTokenizer(vocab, special_tokens, pattern, cache_size)
     return GpuTokenizer(
         vocab, special_tokens, pattern, cache_size, device=device, **options
     )
@@ -40,8 +52,8 @@ def create_by_encoder_name(
     allow_fetch: bool = True,
     device="cuda",
     **options,
-) -> GpuTokenizer:
-    """The GpuTokenizer of an encoding (``gpt2``, ``cl100k_synth``, ...)."""
+) -> TikTokenizer:
+    """The tokenizer of an encoding (``gpt2``, ``cl100k_synth``, ...)."""
     spec = get_encoding_spec(encoder_name)
     ranks = load_encoding_ranks(encoder_name, allow_fetch=allow_fetch)
     specials = dict(spec.special_tokens)
@@ -63,8 +75,8 @@ def create_by_model_name(
     allow_fetch: bool = True,
     device="cuda",
     **options,
-) -> GpuTokenizer:
-    """The GpuTokenizer of the encoding a model name maps to."""
+) -> TikTokenizer:
+    """The tokenizer of the encoding a model name maps to."""
     return create_by_encoder_name(
         encoding_name_for_model(model_name),
         extra_special_tokens,

@@ -14,6 +14,11 @@ MB/s over several rounds, and where one forced run spends its time.
    and the busy time is the union of their intervals, so nothing is
    counted twice.  Host time is wall-clock around the tokenizer's
    methods; the methods nest, so their times do not add up.
+3. Transfers of that run, per device wave: host-to-device copies by the
+   kind of host memory they came from (pinned or pageable, as the device
+   rows name them), device-to-host copies, and the host-side CUDA
+   runtime calls that copy or make the host wait
+   (``cudaStreamSynchronize`` and the like).
 
 Usage, with one CUDA card visible, from the repository root:
 
@@ -48,6 +53,16 @@ TIMED = (
 )
 #: device-side rows that are the profiler's own bookkeeping.
 PROFILER_ROWS = ("Activity Buffer Request",)
+#: host-side CUDA runtime calls counted in the transfer report.
+RUNTIME_CALLS = (
+    "cudaMemcpyAsync",
+    "cudaStreamSynchronize",
+    "cudaDeviceSynchronize",
+    "cudaEventSynchronize",
+    "cudaHostAlloc",
+    "cudaLaunchKernel",
+    "cudaLaunchKernelExC",
+)
 
 
 def make(route: str):
@@ -114,6 +129,31 @@ def device_rows(prof) -> tuple:
     return rows, busy
 
 
+def transfers(prof, waves: int, h2d_bytes: int) -> dict:
+    """Copies by direction and host-memory kind (device rows), the
+    RUNTIME_CALLS made on the host, and both per device wave; the tiles'
+    bytes (``h2d_bytes``) over the host-to-device rows' device time."""
+    from torch.autograd import DeviceType
+
+    copies = {"h2d_pinned": 0, "h2d_pageable": 0, "h2d_other": 0, "d2h": 0}
+    calls = dict.fromkeys(RUNTIME_CALLS, 0)
+    h2d_us = 0.0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            if e.name.startswith("Memcpy HtoD"):
+                kind = "pinned" if "Pinned" in e.name else "pageable" if "Pageable" in e.name else "other"
+                copies[f"h2d_{kind}"] += 1
+                h2d_us += e.time_range.end - e.time_range.start
+            elif e.name.startswith("Memcpy DtoH"):
+                copies["d2h"] += 1
+        elif e.name in calls:
+            calls[e.name] += 1
+    per_wave = {k: v / waves for k, v in {**copies, **calls}.items()} if waves else {}
+    return {"device_waves": waves, "copies": copies, "runtime_calls": calls, "per_wave": per_wave,
+            "h2d_bytes": h2d_bytes, "h2d_us": h2d_us,
+            "h2d_GBps": h2d_bytes / h2d_us / 1e3 if h2d_us else None}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -162,6 +202,15 @@ def main() -> int:
     tok = make("forced")
     acc = {}
     timed_methods(tok, acc)
+    h2d_bytes = 0
+    dispatch = tok._dispatch_tiles
+
+    def counting_dispatch(batches):  # the bytes of every tile uploaded
+        nonlocal h2d_bytes
+        h2d_bytes += sum(b.ids.nbytes + b.lengths.nbytes for b in batches)
+        return dispatch(batches)
+
+    tok._dispatch_tiles = counting_dispatch
     before = merge_cuda.LAUNCHES
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         wall = stream_s(tok, chunks)
@@ -172,13 +221,15 @@ def main() -> int:
     for name, r in sorted(rows.items(), key=lambda kv: -kv[1]["us"]):
         print(f"device {name[:90]}: {r['count']} x, {r['us']} us", flush=True)
     print(f"device busy {busy_us} us of {wall * 1e6} us wall = {busy_us / (wall * 1e6)}", flush=True)
+    moves = transfers(prof, tok.stats.device_waves, h2d_bytes)
+    print(f"transfers: {json.dumps(moves)}", flush=True)
 
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps({
             "card": smi, "bytes": nbytes, "mbps": mbps, "stats": stats,
             "profiled": {"wall_s": wall, "launches": launches, "host_s": acc,
-                         "device_rows": rows, "busy_us": busy_us},
+                         "device_rows": rows, "busy_us": busy_us, "transfers": moves},
         }, indent=1))
     if "jax" in sys.modules:
         raise SystemExit("profile_torch_stream: jax was imported")
