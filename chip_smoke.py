@@ -50,12 +50,24 @@ result line):
    its JSON; (e) ``runtime.profiler.trace`` around one forced
    ``encode_batch`` of a fresh chunk, in a process of its own, writes a
    trace that names ``merge_packed_kernel`` and shows one pinned
-   host-to-device copy per device wave.
+   host-to-device copy per device wave;
+8. multi-device path, on every card when there are more than one, else
+   on two shards of ``cuda:0`` (each with its own stream, upload and
+   launches): (a) ``parallel.dryrun.dryrun_multidevice`` (one raw
+   sharded step with its counters and shard layout, ``encode_batch``,
+   the stream, both bulk trims and ``decode_batch`` against the host
+   engine); (b) phase 5's 8 MB cold corpus through ``encode_batch_stream``
+   of a mesh tokenizer must equal phase 5's host reference document for
+   document, with the merge kernel launched on every shard's stream and
+   one upload per shard and wave; (c) ``tools/fuzz_campaign_torch.py``'s
+   ``encode``, ``trim`` and ``mesh`` bodies on the card for
+   ``CAMPAIGN_S`` seconds each from a fixed seed, without a mismatch.
 
 The merge kernels' launch counts are reset before phase 4 and read after
-phase 5 (the first merge kernel must not be launched there), and reset
-again just before phase 7 (a) and read after it; the probe kernels'
-counts are reset just before ``run_arms`` and read after it.
+phase 5 (the first merge kernel must not be launched there), reset
+again just before phase 7 (a) and read after it, and again (with the
+per-stream counts) just before phase 8 (b) and read after it; the probe
+kernels' counts are reset just before ``run_arms`` and read after it.
 The last lines are the card's name and power limit, the
 ``{"kernels": [...]}`` record, and ``{"ok": true, "device": {...}}``.
 Builds go under ``build/`` in the checkout.  The script imports nothing
@@ -83,10 +95,15 @@ CORPUS_MB = 8.0
 CORPUS7_MB = 64.0
 #: phase 7 (b) stops its run when the document source reaches this chunk.
 STOP_CHUNK = 4
+#: seconds of each campaign body in phase 8 (c), and their seed.
+CAMPAIGN_S = 15.0
+CAMPAIGN_SEED = 2026
 REPS = 5
 KERNEL = "merge_packed"
 KERNEL_SOURCE = "tokenizer_tpu_torch/csrc/merge_packed.cu"
-REPLACES = "tokenizer_tpu/ops/merge_pallas.py:213"  # and merge_jax.py:83
+REPLACES = "tokenizer_tpu/ops/merge_pallas.py:213"
+#: the XLA merge that the same kernel also replaces (the mesh step's body).
+ALSO_REPLACES = ["tokenizer_tpu/ops/merge_jax.py:83"]
 PROBE_KERNELS = ("probe_rows_async", "probe_rows_resident", "lookup_onehot")  # K3, K4, K5
 #: NVIDIA H100 SXM device memory rate, bytes/s (data sheet).
 HBM_BYTES_PER_S = 3.35e12
@@ -594,6 +611,81 @@ def corpus_phase(seed: int, seed_text: str, device, smi: str) -> dict:
             "ref_MBps": nbytes / ref_s / 1e6}
 
 
+def mesh_phase(docs: list, want: list, nbytes: int, smi: str) -> dict:
+    """Phase 8, the multi-device path; returns its launches and MB/s."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    import tokenizer_tpu_torch as tt
+    from tokenizer_tpu_torch.ops import merge_cuda
+    from tokenizer_tpu_torch.parallel import data_mesh, local_devices
+    from tokenizer_tpu_torch.parallel.dryrun import dryrun_multidevice
+
+    local = local_devices()
+    devices = local if len(local) > 1 else local * 2
+    where = (f"all {len(local)} cards" if len(local) > 1
+             else f"two shards of {local[0]} (one card)")
+
+    # (a) the dry run.
+    t0 = time.perf_counter()
+    dry = dryrun_multidevice(devices=devices)
+    print(f"phase 8 (a) dryrun_multidevice on {where}: {json.dumps(dry)} "
+          f"({time.perf_counter() - t0:.2f} s)", flush=True)
+
+    # (b) phase 5's cold corpus through a mesh tokenizer.
+    mesh = data_mesh(devices=devices)
+    tok = tt.create_by_encoder_name("cl100k_synth", allow_fetch=False, device="cuda", mesh=mesh)
+    check(tok.mesh is mesh, "the tokenizer did not take the mesh")
+    tok._ensure_device()  # the tables' uploads outside the timed region
+    torch.cuda.synchronize()
+    chunks = [docs[i : i + CHUNK_DOCS] for i in range(0, len(docs), CHUNK_DOCS)]
+    merge_cuda.LAUNCHES = merge_cuda.V1_LAUNCHES = 0
+    merge_cuda.STREAM_LAUNCHES.clear()
+    t0 = time.perf_counter()
+    out = [ids for batch in tok.encode_batch_stream(chunks) for ids in batch]
+    torch.cuda.synchronize()
+    mesh_s = time.perf_counter() - t0
+    launches, by_stream = merge_cuda.LAUNCHES, dict(merge_cuda.STREAM_LAUNCHES)
+    st = tok.stats.as_dict()
+    check(len(out) == len(docs), f"mesh stream gave {len(out)} outputs for {len(docs)} documents")
+    bad = [i for i, (g, w) in enumerate(zip(out, want)) if not np.array_equal(g, w)]
+    check(not bad, f"mesh cl100k_synth: {len(bad)} documents differ, first {bad[:5]}")
+    check(merge_cuda.V1_LAUNCHES == 0, "the mesh path launched the first merge kernel")
+    shards = [(str(d), s.cuda_stream) for d, s in zip(mesh.devices, tok._streams)]
+    check(len(set(shards)) == mesh.size, f"shards share a stream: {shards}")
+    check(set(by_stream) == set(shards) and all(by_stream[k] > 0 for k in shards),
+          f"launches by stream {by_stream}, shard streams {shards}")
+    check(st["device_uploads"] == mesh.size * st["device_waves"] and st["host_wave_pieces"] == 0,
+          f"uploads {st['device_uploads']} for {st['device_waves']} waves of {mesh.size} shards")
+    by_device = {}
+    for (dev, _), n in by_stream.items():
+        by_device[dev] = by_device.get(dev, 0) + n
+    print(f"phase 8 (b) mesh encode_batch_stream on {where} == host reference on {len(docs)} docs, "
+          f"{nbytes} bytes; {nbytes / mesh_s / 1e6:.3f} MB/s ({mesh_s:.3f} s); device_waves "
+          f"{st['device_waves']}, device_pieces {st['device_pieces']}, unique_pieces "
+          f"{st['unique_pieces']}, host_fallback_pieces {st['host_fallback_pieces']}, uploads "
+          f"{st['device_uploads']} ({st['device_uploads'] / max(st['device_waves'], 1):.1f} a wave), "
+          f"device_blocking_s {st['device_blocking_s']:.4f}; launches {launches}, by shard stream "
+          f"{json.dumps([[d, hex(s), by_stream[(d, s)]] for d, s in shards])}, by device "
+          f"{json.dumps(by_device)}; card {smi}", flush=True)
+
+    # (c) the differential campaign's bodies on the card.
+    spec = importlib.util.spec_from_file_location(
+        "fuzz_campaign_torch", ROOT / "tools" / "fuzz_campaign_torch.py")
+    campaign = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(campaign)
+    iterations = {}
+    for mode in ("encode", "trim", "mesh"):
+        its, failure = campaign.run(mode, CAMPAIGN_SEED, CAMPAIGN_S, "cuda", log=lambda m: None)
+        check(failure is None, f"phase 8 (c): {failure}")
+        iterations[mode] = its
+    print(f"phase 8 (c) campaign bodies on the card, seed {CAMPAIGN_SEED}, {CAMPAIGN_S:.0f} s "
+          f"each, no mismatch: iterations {json.dumps(iterations)}", flush=True)
+    return {"launches": launches, "MBps": nbytes / mesh_s / 1e6, "shards": len(devices)}
+
+
 def smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -757,6 +849,11 @@ def main() -> int:
     t7 = time.perf_counter()
     corpus = corpus_phase(args.seed, seed_text, device, smi)
     print(f"phase 7 {time.perf_counter() - t7:.2f} s", flush=True)
+
+    # -- 8. multi-device path --------------------------------------------------
+    t8 = time.perf_counter()
+    mesh = mesh_phase(docs, want, nbytes, smi)
+    print(f"phase 8 {time.perf_counter() - t8:.2f} s", flush=True)
     leaked = sorted(m for m in sys.modules
                     if m in ("jax", "bench", "tokenizer_tpu") or m.startswith("tokenizer_tpu."))
     check(not leaked, f"imported {leaked}")
@@ -767,10 +864,12 @@ def main() -> int:
         "route": "cuda",
         "source": KERNEL_SOURCE,
         "replaces": REPLACES,
-        "launches": launches + corpus["launches"],
+        "also_replaces": ALSO_REPLACES,
+        "launches": launches + corpus["launches"] + mesh["launches"],
         "launches_by_path": {
             "encode_batch + encode_batch_stream (phases 4-5)": launches,
             "encode_corpus (phase 7a)": corpus["launches"],
+            "mesh (phase 8)": mesh["launches"],
         },
         "max_abs_err": max(r["max_abs_err"] for r in k_res.values()),
         # one [L, 8192] tile of each bucket, cl100k_synth table, summed;
@@ -787,6 +886,8 @@ def main() -> int:
         "cold_stream_MBps": nbytes / cold_s / 1e6,
         "corpus_MBps": corpus["MBps"],
         "corpus_host_reference_MBps": corpus["ref_MBps"],
+        "mesh_stream_MBps": mesh["MBps"],
+        "mesh_shards": mesh["shards"],
     }
     probes = []
     for arm, source, replaces in exp_probe.ARMS:

@@ -410,7 +410,7 @@ def test_encode_corpus_on_card_equals_host_reference(cuda, tmp_path, lib_rs_text
     meter = ThroughputMeter()
     with meter:
         prog = encode_corpus(iter(docs), tok, tmp_path / "card", chunk_bytes=20000)
-        meter.block_until_ready(tok._tab_dev)
+        meter.block_until_ready(tok._tabs[tok.device])
     assert merge_cuda.LAUNCHES > before and tok.stats.device_pieces > 0
     assert prog.chunks_done > 2 and prog.docs == len(docs)
     ref = tt.create_by_encoder_name("cl100k_synth", allow_fetch=False, device="cpu")
@@ -422,3 +422,70 @@ def test_encode_corpus_on_card_equals_host_reference(cuda, tmp_path, lib_rs_text
         a, b = np.load(f), np.load(tmp_path / "card" / f.name)
         np.testing.assert_array_equal(a["ids"], b["ids"])
         np.testing.assert_array_equal(a["offsets"], b["offsets"])
+
+
+# -- the mesh: two shards of one card ------------------------------------------
+
+
+def test_two_shards_of_one_card_equal_the_plain_merge(cuda, merge_table, lib_rs_text):
+    """make_sharded_merge_fn over [cuda, cuda]: one launch per shard, each
+    on its own stream; the gathered columns and the summed counters equal
+    the plain merge of the whole tile."""
+    from tokenizer_tpu_torch.parallel import data_mesh, gather_shards, make_sharded_merge_fn
+
+    table = merge_table
+    ids, lengths = _tile(table, lib_rs_text.encode(), 64, 2048, seed=31)
+    mesh = data_mesh(devices=[cuda, cuda])
+    fn = make_sharded_merge_fn(table, mesh)
+    merge_cuda.STREAM_LAUNCHES.clear()
+    before = merge_cuda.LAUNCHES
+    out_ids, out_n, counters = fn(ids, lengths)
+    torch.cuda.synchronize()
+    assert merge_cuda.LAUNCHES == before + 2
+    assert len(merge_cuda.STREAM_LAUNCHES) == 2 and set(merge_cuda.STREAM_LAUNCHES.values()) == {1}
+    assert [tuple(o.shape) for o in out_ids] == [(64, 1024)] * 2
+    got_ids, got_n = gather_shards(out_ids, out_n)
+    kw = dict(slot_bits=table.slot_bits, max_probes=table.max_probes)
+    p_ids, p_n = merge_packed_torch(
+        device_table(table, cuda), torch.from_numpy(ids).to(cuda), torch.from_numpy(lengths).to(cuda), **kw
+    )
+    np.testing.assert_array_equal(got_ids, p_ids.cpu().numpy())
+    np.testing.assert_array_equal(got_n, p_n.cpu().numpy())
+    assert counters.cpu().tolist() == [int(p_n.sum()), int((lengths > 0).sum())]
+
+
+def test_mesh_tokenizer_on_two_shards_of_one_card(cuda, lib_rs_text):
+    """A GpuTokenizer over [cuda, cuda]: every wave to the shards, one
+    upload per shard and wave, the kernel launched on both shard streams;
+    ids equal the host-routed reference and, for gpt2, the golden."""
+    import sys
+
+    import tokenizer_tpu_torch as tt
+    from tokenizer_tpu_torch.parallel import data_mesh
+
+    require_vocab("cl100k_synth")
+    mesh = data_mesh(devices=[cuda, cuda])
+    gpt2 = tt.create_by_encoder_name("gpt2", allow_fetch=False, device="cuda", mesh=mesh)
+    (ids,) = gpt2.encode_batch([lib_rs_text])
+    assert list(ids) == json.loads(find_testdata("tokens_gpt2.json").read_text())
+    rng = np.random.default_rng(23)
+    docs = []
+    for k in range(40):
+        s = int(rng.integers(0, len(lib_rs_text) - 2000))
+        docs.append(lib_rs_text[s : s + int(rng.integers(50, 2000))] + f" zq{k}x 好{k * 7919}")
+    tok = tt.create_by_encoder_name("cl100k_synth", allow_fetch=False, device="cuda", mesh=mesh)
+    assert tok.mesh is mesh
+    merge_cuda.STREAM_LAUNCHES.clear()
+    got = tok.encode_batch(docs[:20])
+    got += [g for b in tok.encode_batch_stream([docs[20:30], docs[30:]]) for g in b]
+    torch.cuda.synchronize()
+    ref = tt.create_by_encoder_name("cl100k_synth", allow_fetch=False, device="cpu")
+    ref._host_wave_max = sys.maxsize
+    for d, g, w in zip(docs, got, ref.encode_batch(docs)):
+        assert np.array_equal(g, w), repr(d[:60])
+    st = tok.stats
+    assert st.device_waves >= 3 and st.device_uploads == 2 * st.device_waves
+    assert st.host_wave_pieces == 0
+    shard_streams = {s.cuda_stream for s in tok._streams}
+    assert len(shard_streams) == 2
+    assert {stream for _, stream in merge_cuda.STREAM_LAUNCHES} == shard_streams

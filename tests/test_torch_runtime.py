@@ -169,7 +169,9 @@ def test_host_engine_rejects_device_options():
 def test_public_surface_is_the_jax_package_s():
     import tokenizer_tpu
 
-    want = set(tokenizer_tpu.__all__) - {"TpuTokenizer"} | {"GpuTokenizer"}
+    # Plus the mesh that GpuTokenizer(mesh=) takes, where TpuTokenizer
+    # takes a jax.sharding.Mesh from jax itself.
+    want = set(tokenizer_tpu.__all__) - {"TpuTokenizer"} | {"GpuTokenizer", "DataMesh", "data_mesh"}
     assert set(tt.__all__) == want
     for name in tt.__all__:
         assert getattr(tt, name) is not None

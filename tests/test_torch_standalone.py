@@ -29,6 +29,9 @@ PORT_FILES = sorted(
         REPO / "chip_smoke.py",
         REPO / "tools" / "exp_cuda_probe.py",
         REPO / "tools" / "profile_torch_stream.py",
+        REPO / "tools" / "merge_kernel_scaling.py",
+        REPO / "tools" / "fuzz_campaign_torch.py",
+        REPO / "tools" / "mesh_scaling.py",
     )
 )
 
@@ -72,7 +75,13 @@ def test_port_files_cover_the_host_layers():
         "tokenizer_tpu_torch/runtime/profiler.py",
         "tokenizer_tpu_torch/parallel/__init__.py",
         "tokenizer_tpu_torch/parallel/multihost.py",
+        "tokenizer_tpu_torch/parallel/mesh.py",
+        "tokenizer_tpu_torch/parallel/encode_step.py",
+        "tokenizer_tpu_torch/parallel/dryrun.py",
         "tokenizer_tpu_torch/cli.py",
+        "tools/merge_kernel_scaling.py",
+        "tools/fuzz_campaign_torch.py",
+        "tools/mesh_scaling.py",
     ):
         assert rel in PORT_FILES
 

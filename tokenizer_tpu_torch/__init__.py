@@ -9,10 +9,12 @@ built into a cache directory of its own).  On top of them it has the
 device layer: the pair table as torch tensors, the packed merge as a
 hand-written CUDA kernel for Hopper (``csrc/merge_packed.cu``) with its
 plain PyTorch version, and :class:`GpuTokenizer`, which routes
-``encode_batch`` and ``encode_batch_stream`` through that kernel; and
-the corpus path around it: ``runtime/pipeline`` (``encode_corpus``),
-``runtime/perf``, ``runtime/profiler``, ``parallel/multihost``
-(torch.distributed) and the CLI (``tokenizer-tpu-torch``).
+``encode_batch`` and ``encode_batch_stream`` through that kernel, on one
+device or sharded over a :class:`DataMesh` (``parallel/mesh``,
+``parallel/encode_step``); and the corpus path around it:
+``runtime/pipeline`` (``encode_corpus``), ``runtime/perf``,
+``runtime/profiler``, ``parallel/multihost`` (torch.distributed) and the
+CLI (``tokenizer-tpu-torch``).
 
 The public surface is the JAX package's, with :class:`GpuTokenizer` in
 place of ``TpuTokenizer``.  Importing this package imports torch but
@@ -35,6 +37,7 @@ from .models.registry import (
     get_special_tokens_by_encoder,
     get_special_tokens_by_model,
 )
+from .parallel.mesh import DataMesh, data_mesh
 from .utils.lru import LRUCache
 from .vocab import Vocabulary, load_tiktoken_file, parse_tiktoken_data
 
@@ -62,4 +65,6 @@ __all__ = [
     "load_tiktoken_file",
     "parse_tiktoken_data",
     "GpuTokenizer",
+    "DataMesh",
+    "data_mesh",
 ]

@@ -31,8 +31,8 @@ def create_tokenizer(
 ) -> TikTokenizer:
     """A GpuTokenizer over ``vocab`` (a Vocabulary, rank dict or rank-file
     path) on ``device``; ``**options`` go to its constructor
-    (``max_unique_rows=``).  ``device=None`` gives the host engine, which
-    takes no options: they raise there."""
+    (``max_unique_rows=``, ``mesh=``).  ``device=None`` gives the host
+    engine, which takes no options: they raise there."""
     if device is None:
         if options:
             raise TypeError(

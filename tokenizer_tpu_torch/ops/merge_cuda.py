@@ -23,6 +23,7 @@ __all__ = [
     "LAUNCHES",
     "V1_LAUNCHES",
     "LOOKUP_LAUNCHES",
+    "STREAM_LAUNCHES",
     "LANE",
     "MAX_L",
 ]
@@ -40,6 +41,9 @@ MAX_L = 2048
 LAUNCHES = 0
 V1_LAUNCHES = 0
 LOOKUP_LAUNCHES = 0
+#: Launches of the merge kernel by ``(device, stream handle)``: which
+#: card and stream each of the ``LAUNCHES`` went to.
+STREAM_LAUNCHES: Dict[Tuple[str, int], int] = {}
 
 _TAB_KEYS = ("key_left", "key_right", "values")
 
@@ -122,6 +126,9 @@ def merge_packed(
     lib = load_library()
     out_ids = torch.empty_like(ids)
     out_n = torch.empty_like(lengths)
+    stream = torch.cuda.current_stream(ids.device).cuda_stream
+    # The device guard also makes the kernel's shared-memory attribute,
+    # which CUDA keeps per device, apply to a card other than 0.
     with torch.cuda.device(ids.device):
         rc = lib.tt_merge_packed(
             *_tab_ptrs(tab),
@@ -133,10 +140,12 @@ def merge_packed(
             out_n.data_ptr(),
             L,
             B,
-            torch.cuda.current_stream(ids.device).cuda_stream,
+            stream,
         )
     _raise_on(lib, rc, "merge_packed")
     LAUNCHES += 1
+    key = (str(ids.device), stream)
+    STREAM_LAUNCHES[key] = STREAM_LAUNCHES.get(key, 0) + 1
     return out_ids, out_n
 
 
