@@ -12,7 +12,8 @@ result line):
    the native C++ scanner (without it the pipeline would take a Python
    path);
 2. build: the CUDA kernels compile with nvcc from ``tokenizer_tpu_torch/csrc``;
-3. kernel vs plain: for the gpt2 and cl100k_synth pair tables, one
+3. kernel vs plain: for the gpt2, cl100k_synth and o200k_synth pair
+   tables (o200k_synth, 2^21 slots, is the largest the port serves), one
    ``[L, 8192]`` tile of real corpus pieces per packer bucket L goes
    through the CUDA merge kernel (warp per column), the port's first merge
    kernel (thread per column) and the plain PyTorch version on the card
@@ -30,12 +31,16 @@ result line):
    equal, document for document, a host-routed tokenizer of the same
    vocabulary (every wave merged by the native C++ heap merge, no card);
    bulk trims and decode are checked on 64 fresh documents;
-6. probe experiments, on the tables of phase 3: the row-copy (K3), the
-   L2-resident row (K4) and the one-hot int8 tensor-core (K5) probe
-   kernels equal their plain PyTorch versions on a ``[16, 128]`` tile and
+6. probe experiments, on the three tables of phase 3 (the same table
+   builds): the row-copy (K3), the L2-resident row (K4) and the one-hot
+   int8 tensor-core (K5, one wgmma GEMM over every round) probe kernels
+   equal their plain PyTorch versions on a ``[16, 128]`` tile and
    ``PairTable.lookup`` on 65,536 pairs; then the experiment's own path,
    ``exp_probe.run_arms`` (``tools/exp_cuda_probe.py``), runs every arm
-   on both tables, bit-exact, with kernel and plain times;
+   on every table, bit-exact, with kernel and plain times; K5's time is
+   set beside its operations bound (2 M K N int8 operations at the
+   H100's 1,979 TOP/s) and beside ``torch._int_mm`` on the same product
+   (``exp_probe.onehot_product``), which only this script calls;
 7. corpus path: a 64 MB cl100k_synth corpus made from ``--seed``, one
    file per document under ``build/``, goes (a) through
    ``encode_corpus(iter_corpus_files([dir]), tok, out)`` on the card with
@@ -96,7 +101,7 @@ CORPUS7_MB = 64.0
 #: phase 7 (b) stops its run when the document source reaches this chunk.
 STOP_CHUNK = 4
 #: seconds of each campaign body in phase 8 (c), and their seed.
-CAMPAIGN_S = 15.0
+CAMPAIGN_S = 12.0
 CAMPAIGN_SEED = 2026
 REPS = 5
 KERNEL = "merge_packed"
@@ -105,6 +110,8 @@ REPLACES = "tokenizer_tpu/ops/merge_pallas.py:213"
 #: the XLA merge that the same kernel also replaces (the mesh step's body).
 ALSO_REPLACES = ["tokenizer_tpu/ops/merge_jax.py:83"]
 PROBE_KERNELS = ("probe_rows_async", "probe_rows_resident", "lookup_onehot")  # K3, K4, K5
+#: The tables of phases 3 and 6, each built once.
+TABLES = ("gpt2", "cl100k_synth", "o200k_synth")
 #: NVIDIA H100 SXM device memory rate, bytes/s (data sheet).
 HBM_BYTES_PER_S = 3.35e12
 #: Bytes of one pair-table slot: key_left, key_right, value.
@@ -377,6 +384,31 @@ def probe_vs_plain(table, name, device, rng) -> dict:
         print(f"phase 6 {name} {k}: kernel == plain on {list(exp_probe.SHAPE)}, "
               f"== PairTable.lookup on {LOOKUP_PAIRS} pairs", flush=True)
     return errs
+
+
+def onehot_yardstick(table, name, device) -> dict:
+    """Phase 6's yardstick for K5: ``torch._int_mm`` on the kernel's own
+    product for run_arms' ``[16, 128]`` tile (the one-hot matrix made
+    before the timing, B the K-major table viewed as [K, N]), checked
+    against the rows of B it selects; beside it the product's operations
+    bound and the bytes of B that the kernel's tiling moves from L2 to
+    shared memory per call."""
+    import torch
+
+    from tokenizer_tpu_torch.ops import exp_probe, probe_cuda
+    from tokenizer_tpu_torch.ops.exp_probe_torch import bigtable_device_table, bigtable_kmajor
+
+    S, mp = exp_probe.SHAPE[0], table.max_probes
+    left, right = (torch.from_numpy(a).to(device) for a in exp_probe.make_probes(table, exp_probe.SHAPE))
+    tab_k = bigtable_kmajor(bigtable_device_table(table, device))
+    a, b, target = exp_probe.onehot_product(tab_k, left, right, slot_bits=table.slot_bits,
+                                            max_probes=mp)
+    got = torch._int_mm(a, b)
+    check(torch.equal(got, b[target].to(torch.int32)), f"{name}: torch._int_mm != the rows of B")
+    ms = exp_probe.queued_ms(lambda: torch._int_mm(a, b))
+    ops = 2 * a.shape[0] * a.shape[1] * b.shape[1]
+    return {"library_ms": ms, "ops": ops, "ops_bound_us": ops / INT8_OPS_PER_S * 1e6,
+            "l2_to_smem_bytes": probe_cuda.onehot_tiling(S, mp, a.shape[1]).l2_to_smem_bytes}
 
 
 def probe_bound_us(table) -> float:
@@ -732,7 +764,7 @@ def main() -> int:
     build.load_library()
     print(f"phase 2 nvcc build {time.perf_counter() - t0:.2f} s -> {lib_path.relative_to(ROOT)}", flush=True)
     for line in report.splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "wgmma" in line or "setmaxnreg" in line:
             print(f"phase 2 ptxas: {line.strip()}", flush=True)
 
     # -- 3. kernel vs plain on the card -------------------------------------
@@ -740,7 +772,7 @@ def main() -> int:
     rng = np.random.default_rng(args.seed)
     sample = gen_corpus(1.0, args.seed + 1, seed_text)
     k_res = {}
-    for name in ("gpt2", "cl100k_synth"):
+    for name in TABLES:
         t0 = time.perf_counter()
         if name not in toks:
             toks[name] = tt.create_by_encoder_name(name, allow_fetch=False, device=device)
@@ -842,6 +874,16 @@ def main() -> int:
         check(n > 0, f"the probe experiment's path did not launch {k}")
     check(probe_cuda.l2_limits(device)["persisting_l2_bytes"] == l2["persisting_l2_bytes"],
           "the persisting L2 set-aside was not given back after K4")
+    k5 = {}
+    for name, recs in arms.items():
+        k5[name] = onehot_yardstick(toks[name].table, name, device)
+        us = next(r for r in recs if r["arm"] == "lookup_onehot")["device_us"]
+        lib_us, bound = k5[name]["library_ms"] * 1e3, k5[name]["ops_bound_us"]
+        print(f"phase 6 K5 {name} {list(exp_probe.SHAPE)}: kernel {us:.3f} us (queued), ops bound "
+              f"{bound:.3f} us ({k5[name]['ops']} int8 ops at 1,979 TOP/s): {bound / us:.2%} of it; "
+              f"torch._int_mm on the same product {lib_us:.3f} us ({bound / lib_us:.2%}); kernel / "
+              f"_int_mm {us / lib_us:.3f}; L2->SMEM {k5[name]['l2_to_smem_bytes']} bytes per call; "
+              f"card {smi}", flush=True)
     print(f"phase 6 launches in run_arms {json.dumps(probe_launches)}; "
           f"{time.perf_counter() - t6:.2f} s; card {smi}", flush=True)
 
@@ -903,7 +945,8 @@ def main() -> int:
             "launches": probe_launches[arm],
             "max_abs_err": max(e[arm] for e in errs.values()),
             # run_arms' [16, 128] tile, cl100k_synth table; ms: device
-            # time (exp_probe.queued_ms), plain_ms: CUDA events
+            # time (exp_probe.queued_ms), plain_ms: CUDA events; K5's
+            # bound and library call are set below
             "ms": by_table["cl100k_synth"]["device_us"] / 1e3,
             "plain_ms": by_table["cl100k_synth"]["plain_ms"],
             "bound_ms": bounds["cl100k_synth"] / 1e3,
@@ -917,11 +960,23 @@ def main() -> int:
             },
         })
         if arm == "lookup_onehot":
-            # K5's formulation, not the lookup: the one-hot int8 products
-            # of every round and byte plane at the int8 peak.
-            probes[-1]["onehot_ops_bound_us_by_table"] = {
-                name: 2 * exp_probe.SHAPE[0] * 128 * toks[name].table.max_probes
-                * toks[name].table.n_slots * 3 * 4 / INT8_OPS_PER_S * 1e6
+            # K5 does the one-hot product of every round and byte plane:
+            # 2 M K N int8 operations bound it, and torch._int_mm computes
+            # the same product.
+            probes[-1].update({
+                "bound_ms": k5["cl100k_synth"]["ops_bound_us"] / 1e3,
+                "bound_by": "operations",
+                "library_ms": k5["cl100k_synth"]["library_ms"],
+                "library_call": "torch._int_mm(one_hot [M, K] int8, tab_k.t() [K, N] int8)",
+                "bound_us_by_table": {n: r["ops_bound_us"] for n, r in k5.items()},
+                "lookup_bytes_bound_us_by_table": bounds,
+                "library_ms_by_table": {n: r["library_ms"] for n, r in k5.items()},
+                "l2_to_smem_bytes_by_table": {n: r["l2_to_smem_bytes"] for n, r in k5.items()},
+            })
+        else:
+            # The rows this formulation moves: three 512-byte rows a round.
+            probes[-1]["row_bytes_by_table"] = {
+                name: exp_probe.SHAPE[0] * 128 * toks[name].table.max_probes * 3 * 512
                 for name in by_table
             }
     print(smi, flush=True)

@@ -323,6 +323,91 @@ def test_probe_kernel_matches_plain_and_pair_table(cuda, probe_table, kernel):
     np.testing.assert_array_equal(got.cpu().numpy(), table.lookup(left, right))
 
 
+@pytest.fixture(scope="module", params=["gpt2", "cl100k_synth", "o200k_synth"])
+def onehot_table(request):
+    require_vocab(request.param)
+    from tokenizer_tpu.vocab import Vocabulary
+
+    return Vocabulary.for_encoding(request.param, allow_fetch=False).pair_table()
+
+
+def _edge_pairs(table, rng):
+    """Pairs at the table's ends: keys whose home slot is in row 0 or in
+    the last row, random pairs whose probe chain runs past the last slot
+    into slot 0 (and some homed in row 0), and extreme and negative ids."""
+    from tokenizer_tpu.ops.pair_table import hash_pair_u32
+
+    n = table.n_slots
+    keys = np.nonzero(table.key_left >= 0)[0]
+    home = hash_pair_u32(table.key_left[keys], table.key_right[keys], table.slot_bits)
+    first = keys[home < 128][:20]
+    last = keys[home >= n - 128][:20]
+    left = [table.key_left[first], table.key_left[last]]
+    right = [table.key_right[first], table.key_right[last]]
+    cand_l = rng.integers(0, table.n_vocab, 1 << 22).astype(np.int32)
+    cand_r = rng.integers(0, table.n_vocab, 1 << 22).astype(np.int32)
+    h = hash_pair_u32(cand_l, cand_r, table.slot_bits)
+    wrap = np.nonzero(h >= n - table.max_probes + 1)[0][:8]
+    low = np.nonzero(h < 4)[0][:8]
+    assert wrap.size > 0 and low.size > 0 and first.size > 0 and last.size > 0
+    left += [cand_l[wrap], cand_l[low]]
+    right += [cand_r[wrap], cand_r[low]]
+    near = 2**31 - 1
+    left.append(np.array([near, near - 1, -5, 0, -(2**31), near], np.int32))
+    right.append(np.array([near, 3, 7, -1, 1, 0], np.int32))
+    return np.concatenate(left).astype(np.int32), np.concatenate(right).astype(np.int32)
+
+
+@pytest.mark.parametrize("S", [1, 3, 16, 17])
+def test_onehot_kernel_matches_plain_and_pair_table(cuda, onehot_table, S):
+    """K5 on every table the port serves, with M ragged against the
+    kernel's 256-row tile: one launch, equal to the plain version and to
+    PairTable.lookup, at the table's first and last rows and across the
+    wrap from the last slot to slot 0."""
+    from tokenizer_tpu_torch.ops import probe_cuda
+    from tokenizer_tpu_torch.ops.exp_probe import make_probes
+    from tokenizer_tpu_torch.ops.exp_probe_torch import (
+        bigtable_device_table, bigtable_kmajor, lookup_onehot_torch)
+
+    table = onehot_table
+    kw = dict(slot_bits=table.slot_bits, max_probes=table.max_probes)
+    left, right = make_probes(table, (S, 128), seed=40 + S)
+    e_l, e_r = _edge_pairs(table, np.random.default_rng(S))
+    left.reshape(-1)[: e_l.size], right.reshape(-1)[: e_r.size] = e_l, e_r
+    tab8 = bigtable_device_table(table, cuda)
+    tab_k = bigtable_kmajor(tab8)
+    dl, dr = torch.from_numpy(left).to(cuda), torch.from_numpy(right).to(cuda)
+    before = probe_cuda.ONEHOT_LAUNCHES
+    got = probe_cuda.lookup_onehot(tab_k, dl, dr, **kw)
+    torch.cuda.synchronize()
+    assert probe_cuda.ONEHOT_LAUNCHES == before + 1
+    assert torch.equal(got, lookup_onehot_torch(tab8, dl, dr, **kw))
+    want = table.lookup(left, right)
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+    assert (want != 2**31 - 1).sum() >= 16 * S  # the table's keys hit
+
+
+def test_onehot_wrapper_takes_only_the_prepared_table(cuda, gpt2_pair_table):
+    """On the card K5 takes the K-major table on the pairs' card, aligned;
+    the JAX layout, a CPU table or a misaligned one raise, and launch nothing."""
+    from tokenizer_tpu_torch.ops import probe_cuda
+    from tokenizer_tpu_torch.ops.exp_probe_torch import bigtable_device_table, bigtable_kmajor
+
+    table = gpt2_pair_table
+    kw = dict(slot_bits=table.slot_bits, max_probes=table.max_probes)
+    tab8 = bigtable_device_table(table, cuda)
+    tab_k = bigtable_kmajor(tab8)
+    flat = torch.empty(tab_k.numel() + 1, dtype=torch.int8, device=cuda)
+    misaligned = flat[1:].view(tab_k.shape)
+    pairs = torch.zeros((1, 128), dtype=torch.int32, device=cuda)
+    before = probe_cuda.ONEHOT_LAUNCHES
+    for bad, match in ((tab8, r"\[1536, n_rows\]"), (tab_k.cpu(), "expected"),
+                       (misaligned, "aligned")):
+        with pytest.raises(ValueError, match=match):
+            probe_cuda.lookup_onehot(bad, pairs, pairs, **kw)
+    assert probe_cuda.ONEHOT_LAUNCHES == before
+
+
 def test_probe_wrappers_raise_on_misaligned_planes(cuda, gpt2_pair_table):
     from tokenizer_tpu_torch.ops import probe_cuda
 

@@ -6,7 +6,10 @@ Pallas kernels in interpret mode (``probe_pallas_dma``, ``probe_pallas_vmem``,
 ``lookup_onehot_pallas``) and ``PairTable.lookup``, on the real gpt2 table
 and on cl100k_synth.  Everything is int32 or int8, so the tolerance is
 zero.  The wrappers of :mod:`tokenizer_tpu_torch.ops.probe_cuda` take the
-plain route on CPU tensors and count no launch.
+plain route on CPU tensors and count no launch.  K5's card-side pieces
+that are plain Python are held here too: the K-major table its kernel
+reads (``bigtable_kmajor``), the checks the wrapper makes on it
+(``check_kmajor``) and the tiling its kernel walks (``onehot_tiling``).
 """
 
 import numpy as np
@@ -22,6 +25,7 @@ from tokenizer_tpu.ops.pair_table import MAX_RANK
 from tokenizer_tpu_torch.ops import exp_probe, probe_cuda
 from tokenizer_tpu_torch.ops.exp_probe_torch import (
     bigtable_device_table,
+    bigtable_kmajor,
     lookup_onehot_torch,
     probe_rows_torch,
     table_planes_2d,
@@ -120,6 +124,17 @@ def test_bigtable_device_table_bit_equal_to_jax(request, vocab):
     want = exp_pallas_bigtable.bigtable_device_table(table)
     assert got.dtype == torch.int8 and got.shape == (4, table.n_slots // 128, 384)
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("vocab", ["gpt2", "cl100k_synth"])
+def test_bigtable_kmajor_bit_equal_to_jax_transposed(request, vocab):
+    table = request.getfixturevalue("gpt2_pair_table" if vocab == "gpt2" else "cl100k_table")
+    n_rows = table.n_slots // 128
+    got = bigtable_kmajor(bigtable_device_table(table, "cpu"))
+    want = np.transpose(exp_pallas_bigtable.bigtable_device_table(table), (0, 2, 1))
+    assert got.dtype == torch.int8 and got.shape == (4 * 384, n_rows) and got.is_contiguous()
+    np.testing.assert_array_equal(got.numpy(), want.reshape(4 * 384, n_rows))
+    assert probe_cuda.check_kmajor(got, table.slot_bits, "cpu") == n_rows
 
 
 # -- plain versions vs the Pallas kernels (interpret mode) -------------------
@@ -262,6 +277,81 @@ def test_wrappers_reject_bad_operands(gpt2_pair_table):
         probe_cuda.lookup_onehot(tab8[:3], pairs, pairs, **kw)
     with pytest.raises(ValueError, match="expected"):
         probe_cuda.lookup_onehot(tab8.to("meta"), pairs, pairs, **kw)
+
+
+def _misaligned(tab_k):
+    flat = torch.empty(tab_k.numel() + 1, dtype=torch.int8)
+    out = flat[1:].view(tab_k.shape)
+    out.copy_(tab_k)
+    return out
+
+
+@pytest.mark.parametrize(
+    "case,err,match",
+    [
+        ("int32", TypeError, "int8"),
+        ("jax layout", ValueError, r"\[1536, n_rows\]"),
+        ("rows cut", ValueError, r"\[1536, n_rows\]"),
+        ("slot_bits", ValueError, "n_rows"),
+        ("device", ValueError, "expected"),
+        ("strided", ValueError, "contiguous"),
+        ("misaligned", ValueError, "aligned"),
+    ],
+)
+def test_check_kmajor_rejects_a_bad_prepared_table(gpt2_pair_table, case, err, match):
+    """What the wrapper refuses before it launches K5's kernel."""
+    table = gpt2_pair_table
+    tab8 = bigtable_device_table(table, "cpu")
+    tab_k = bigtable_kmajor(tab8)
+    sb, device = table.slot_bits, "cpu"
+    bad = {
+        "int32": lambda: tab_k.to(torch.int32),
+        "jax layout": lambda: tab8,
+        "rows cut": lambda: tab_k[:-1].contiguous(),
+        "device": lambda: tab_k.to("meta"),
+        "strided": lambda: tab_k.t().contiguous().t(),
+        "misaligned": lambda: _misaligned(tab_k),
+    }.get(case, lambda: tab_k)()
+    if case == "slot_bits":
+        sb += 1
+    with pytest.raises(err, match=match):
+        probe_cuda.check_kmajor(bad, sb, device)
+
+
+@pytest.mark.parametrize("S", [1, 3, 16, 17])
+@pytest.mark.parametrize("max_probes,n_rows", [(9, 4096), (12, 8192), (12, 16384)])
+def test_onehot_tiling_covers_every_pair_round_once(S, max_probes, n_rows):
+    """Over every CTA's walk, the epilogues write each scratch byte exactly
+    once; padded rows are never written; the CTAs in flight share N-tiles."""
+    t = probe_cuda.onehot_tiling(S, max_probes, n_rows)
+    assert t.m_rows == S * 128 * max_probes and t.scratch_shape == (3, max_probes, S * 128)
+    assert (t.m_tiles - 1) * 256 < t.m_rows <= t.m_tiles * 256
+    assert t.tiles == 12 * t.m_tiles and t.k_tiles == n_rows // 128
+    assert t.l2_to_smem_bytes == t.m_tiles * 4 * 384 * n_rows  # ceil(M / 256) tables
+    grid = t.grid(132)
+    assert grid == min(132, t.tiles)
+    walked = [tile for cta in range(grid) for tile in t.cta_tiles(cta, grid)]
+    assert sorted(walked) == list(range(t.tiles))
+    written = np.concatenate([t.written_bytes(tile) for tile in walked])
+    np.testing.assert_array_equal(np.sort(written), np.arange(3 * max_probes * S * 128 * 4))
+    padded = t.m_tiles * 256 - t.m_rows
+    rnd, pair = t.rows(t.m_tiles - 1)
+    assert rnd.size == 256 - padded and rnd.max() < max_probes and pair.max() < S * 128
+    # One wave of CTAs spans at most two N-tiles of B.
+    first = {t.tile(tile)[1] for tile in range(grid)}
+    assert max(first) - min(first) <= 1 + grid // t.m_tiles
+
+
+def test_plain_k5_matches_pair_table_o200k_synth_at_one_row():
+    require_vocab("o200k_synth")
+    from tokenizer_tpu.vocab import Vocabulary
+
+    table = Vocabulary.for_encoding("o200k_synth", allow_fetch=False).pair_table()
+    assert table.slot_bits == 21
+    left, right = exp_probe.make_probes(table, (1, 128), seed=11)
+    got = _onehot(table, left, right)
+    np.testing.assert_array_equal(got, table.lookup(left, right))
+    assert (got != MAX_RANK).sum() >= 50
 
 
 # -- the runner's arms on the CPU ------------------------------------------------

@@ -32,6 +32,7 @@ PORT_FILES = sorted(
         REPO / "tools" / "merge_kernel_scaling.py",
         REPO / "tools" / "fuzz_campaign_torch.py",
         REPO / "tools" / "mesh_scaling.py",
+        REPO / "tools" / "onehot_ab.py",
     )
 )
 
@@ -82,6 +83,7 @@ def test_port_files_cover_the_host_layers():
         "tools/merge_kernel_scaling.py",
         "tools/fuzz_campaign_torch.py",
         "tools/mesh_scaling.py",
+        "tools/onehot_ab.py",
     ):
         assert rel in PORT_FILES
 

@@ -23,11 +23,12 @@ import torch
 from . import merge_cuda, probe_cuda
 from .exp_probe_torch import (
     bigtable_device_table,
+    bigtable_kmajor,
     lookup_onehot_torch,
     probe_rows_torch,
     table_planes_2d,
 )
-from .merge_torch import device_table, lookup_pairs_torch
+from .merge_torch import device_table, hash_slots, lookup_pairs_torch
 
 __all__ = [
     "ARMS",
@@ -37,6 +38,7 @@ __all__ = [
     "l2_for",
     "make_probes",
     "median_ms",
+    "onehot_product",
     "queued_ms",
     "run_arms",
 ]
@@ -148,12 +150,16 @@ def device_us(fn: Callable[[], object], reps: int = REPS) -> Optional[float]:
 
 def arm_calls(table, device) -> Dict[str, Tuple[Callable, Callable]]:
     """Per arm, ``(kernel(left, right), plain(left, right))`` over the
-    table's layouts on ``device``; pairs are ``[S, 128]`` int32 tensors."""
+    table's layouts on ``device``; pairs are ``[S, 128]`` int32 tensors.
+    Every layout is made here, once, outside the calls: on the card K5's
+    kernel takes the planes K-major (``bigtable_kmajor``), the CPU route
+    the JAX layout."""
     kw = dict(slot_bits=table.slot_bits, max_probes=table.max_probes)
     sb, mp = table.slot_bits, table.max_probes
     tab = device_table(table, device)
     planes = table_planes_2d(table, device)
     tab8 = bigtable_device_table(table, device)
+    onehot_tab = bigtable_kmajor(tab8) if torch.device(device).type == "cuda" else tab8
 
     def rows_plain(l, r):
         return probe_rows_torch(planes, sb, mp, l, r)
@@ -173,10 +179,31 @@ def arm_calls(table, device) -> Dict[str, Tuple[Callable, Callable]]:
             rows_plain,
         ),
         "lookup_onehot": (
-            lambda l, r: probe_cuda.lookup_onehot(tab8, l, r, **kw),
+            lambda l, r: probe_cuda.lookup_onehot(onehot_tab, l, r, **kw),
             lambda l, r: lookup_onehot_torch(tab8, l, r, **kw),
         ),
     }
+
+
+def onehot_product(tab_k: torch.Tensor, left: torch.Tensor, right: torch.Tensor, *,
+                   slot_bits: int, max_probes: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K5's whole product as plain matrices ``(A, B, target)``, for a
+    library GEMM to be timed beside the kernel on the same work.
+
+    ``A`` is the one-hot ``[M, K]`` int8 (M = S * 128 * max_probes, K =
+    n_rows): row ``p * S * 128 + i`` has its 1 at the row of pair i's slot
+    at round p, as the kernel's rows do.  ``B`` is the K-major table
+    ``tab_k`` (:func:`.exp_probe_torch.bigtable_kmajor`) viewed as
+    ``[K, N]``, a column-major view, N = 1,536.  Row m of ``A @ B`` is
+    row ``target[m]`` of B, so a caller checks a product by ``B[target]``.
+    """
+    slot, _live = hash_slots(left.reshape(-1), right.reshape(-1), slot_bits)
+    rounds = torch.arange(max_probes, device=slot.device, dtype=slot.dtype)[:, None]
+    target = (((slot[None, :] + rounds) & ((1 << slot_bits) - 1)) // 128).reshape(-1)
+    a = torch.zeros((target.numel(), tab_k.shape[1]), dtype=torch.int8, device=tab_k.device)
+    a[torch.arange(target.numel(), device=tab_k.device), target] = 1
+    return a, tab_k.t(), target
 
 
 def l2_for(arm: str, table, device):

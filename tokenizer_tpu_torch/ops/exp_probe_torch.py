@@ -12,7 +12,8 @@ they differ in how a probe's table row reaches the compute unit:
 * K5 ``lookup_onehot_pallas`` fetches each probe's row with a one-hot
   matrix product over the int8 byte planes of
   :func:`bigtable_device_table`; its plain version is
-  :func:`lookup_onehot_torch`.
+  :func:`lookup_onehot_torch`, and its kernel reads the planes K-major,
+  as :func:`bigtable_kmajor` lays them out once.
 
 Both plain versions always run the table's ``max_probes`` rounds, as the
 Pallas kernels do, and give ``MAX_RANK`` on a miss or a negative id.
@@ -33,6 +34,7 @@ from .pair_table import MAX_RANK
 __all__ = [
     "LANES",
     "bigtable_device_table",
+    "bigtable_kmajor",
     "lookup_onehot_torch",
     "probe_rows_torch",
     "table_planes_2d",
@@ -80,6 +82,19 @@ def bigtable_device_table(table, device) -> torch.Tensor:
     )
     planes = np.stack([((t32 >> (8 * k)) & 0xFF).astype(np.uint8) for k in range(4)])
     return torch.from_numpy(planes.view(np.int8)).to(device)
+
+
+def bigtable_kmajor(tab8: torch.Tensor) -> torch.Tensor:
+    """K5's B operand: the byte planes K-major, ``[4 * 384, n_rows]`` int8.
+
+    ``tab8`` is :func:`bigtable_device_table`'s ``[4, n_rows, 384]``; row
+    ``384 k + c`` of the result is column c of plane k over every table
+    row, so each of the product's output columns reads a contiguous run of
+    K, as 8-bit ``wgmma`` wants B.  A new contiguous tensor on ``tab8``'s
+    device, made once per table and not per call.
+    """
+    planes, n_rows, cols = tab8.shape
+    return tab8.transpose(1, 2).reshape(planes * cols, n_rows).contiguous()
 
 
 def probe_rows_torch(

@@ -7,7 +7,8 @@ Each keeps the JAX package's layout and computes ``PairTable.lookup``:
 * :func:`probe_rows_resident`: K4, ``tt_probe_rows_resident``, counterpart
   of ``probe_pallas_vmem``;
 * :func:`lookup_onehot`: K5, ``csrc/lookup_onehot.cu`` ``tt_lookup_onehot``,
-  counterpart of ``tokenizer_tpu.ops.exp_pallas_bigtable.lookup_onehot_pallas``.
+  counterpart of ``tokenizer_tpu.ops.exp_pallas_bigtable.lookup_onehot_pallas``;
+  :func:`onehot_tiling` is the tiling its kernel walks.
 
 A CPU tensor runs the plain PyTorch version (:mod:`.exp_probe_torch`); a
 CUDA tensor launches the kernel on the current stream or raises.  Each
@@ -20,8 +21,10 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
-from typing import Dict, Iterator, Sequence
+from dataclasses import dataclass
+from typing import Dict, Iterator, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from .exp_probe_torch import LANES, lookup_onehot_torch, probe_rows_torch
@@ -30,9 +33,12 @@ from .merge_cuda import _check_int32, _raise_on
 __all__ = [
     "ASYNC_LAUNCHES",
     "ONEHOT_LAUNCHES",
+    "OnehotTiling",
     "RESIDENT_LAUNCHES",
+    "check_kmajor",
     "l2_limits",
     "lookup_onehot",
+    "onehot_tiling",
     "persisting_l2",
     "probe_rows_async",
     "probe_rows_resident",
@@ -43,7 +49,7 @@ ASYNC_LAUNCHES = 0
 RESIDENT_LAUNCHES = 0
 ONEHOT_LAUNCHES = 0
 
-_ALIGN = 16  # cp.async.bulk, int4 and cp.async 16-byte operands
+_ALIGN = 16  # cp.async.bulk, int4 and TMA 16-byte operands
 
 
 def _check_pairs(left: torch.Tensor, right: torch.Tensor) -> torch.device:
@@ -159,28 +165,121 @@ def probe_rows_resident(
     return out
 
 
-def lookup_onehot(
-    tab8: torch.Tensor,
-    left: torch.Tensor,
-    right: torch.Tensor,
-    *,
-    slot_bits: int,
-    max_probes: int,
-) -> torch.Tensor:
-    """K5: the lookup of an ``[S, 128]`` tile by one-hot int8 matrix products.
+#: K5's tiles (``csrc/lookup_onehot.cu``): pair-round rows, columns (one
+#: array of one byte plane) and bytes of K per pipeline stage.
+ONEHOT_TILE_M = 256
+ONEHOT_TILE_N = LANES
+ONEHOT_TILE_K = 128
+#: Columns of K5's product: 4 byte planes of key_left, key_right and values.
+ONEHOT_N = 4 * 3 * LANES
 
-    The counterpart of ``lookup_onehot_pallas``, on int8 tensor cores
-    (``mma.sync`` m16n8k32 s8).  ``tab8`` is the ``[4, n_rows, 384]`` int8
-    byte planes of :func:`.exp_probe_torch.bigtable_device_table`, with
-    ``n_rows * 128 == 2**slot_bits`` and ``n_rows`` a multiple of 32.  On
-    the card the wrapper transposes it to ``[4, 384, n_rows]`` for each
-    call (one 6-13 MB copy) and allocates the ``[3, max_probes, S * 128]``
-    int32 scratch the two kernels pass the selected words through.
+
+@dataclass(frozen=True)
+class OnehotTiling:
+    """How K5's kernel cuts its product ``C[M, N] = one_hot[M, K] @ B[K, N]``.
+
+    Row ``m`` of C is pair ``m % (S * 128)`` at round ``m // (S * 128)``;
+    column ``n`` is lane ``n % 128`` of array ``(n // 128) % 3`` (key_left,
+    key_right, values) in byte plane ``n // 384``; K is the table's rows.
+    M is padded up to whole M-tiles.  Tile ``t`` is M-tile ``t % m_tiles``
+    of N-tile ``t // m_tiles``, and persistent CTA ``b`` of ``grid`` takes
+    tiles ``b, b + grid, ...``, so the CTAs in flight share an N-tile of B.
     """
-    global ONEHOT_LAUNCHES
-    device = _check_pairs(left, right)
-    if left.dim() != 2 or left.shape[1] != LANES:
-        raise ValueError(f"left/right must be [S, {LANES}], got {tuple(left.shape)}")
+
+    S: int
+    max_probes: int
+    n_rows: int
+
+    n_tiles = ONEHOT_N // ONEHOT_TILE_N
+
+    @property
+    def n_pairs(self) -> int:
+        return self.S * LANES
+
+    @property
+    def m_rows(self) -> int:
+        return self.n_pairs * self.max_probes
+
+    @property
+    def m_tiles(self) -> int:
+        return -(-self.m_rows // ONEHOT_TILE_M)
+
+    @property
+    def k_tiles(self) -> int:
+        return self.n_rows // ONEHOT_TILE_K
+
+    @property
+    def tiles(self) -> int:
+        return self.m_tiles * self.n_tiles
+
+    @property
+    def scratch_shape(self) -> Tuple[int, int, int]:
+        """The int32 words the epilogue writes byte by byte: [array, round, pair]."""
+        return (3, self.max_probes, self.n_pairs)
+
+    @property
+    def l2_to_smem_bytes(self) -> int:
+        """Bytes of B that TMA copies into shared memory per call: every
+        tile streams its N-tile over all of K."""
+        return self.tiles * ONEHOT_TILE_N * self.n_rows
+
+    def grid(self, sm_count: int) -> int:
+        """Persistent CTAs: one per SM, or one per tile when there are fewer."""
+        return max(1, min(self.tiles, sm_count))
+
+    def tile(self, t: int) -> Tuple[int, int]:
+        """``(m_tile, n_tile)`` of tile ``t``."""
+        return t % self.m_tiles, t // self.m_tiles
+
+    def cta_tiles(self, cta: int, grid: int) -> range:
+        return range(cta, self.tiles, grid)
+
+    def rows(self, m_tile: int) -> Tuple[np.ndarray, np.ndarray]:
+        """``(round, pair)`` of the M-tile's rows below ``m_rows``; the
+        padded rows after them get no one-hot and are never written."""
+        m = np.arange(m_tile * ONEHOT_TILE_M, min((m_tile + 1) * ONEHOT_TILE_M, self.m_rows))
+        return m // self.n_pairs, m % self.n_pairs
+
+    def written_bytes(self, t: int) -> np.ndarray:
+        """Flat byte offsets into the scratch that tile ``t``'s epilogue
+        writes: byte ``plane`` of word ``[array, round, pair]`` per row."""
+        m_tile, n_tile = self.tile(t)
+        plane, array = divmod(n_tile, 3)
+        rnd, pair = self.rows(m_tile)
+        return ((array * self.max_probes + rnd) * self.n_pairs + pair) * 4 + plane
+
+
+def onehot_tiling(S: int, max_probes: int, n_rows: int) -> OnehotTiling:
+    """K5's tiling of an ``[S, 128]`` tile against a table of ``n_rows`` rows."""
+    if S < 1 or max_probes < 1 or n_rows < 1:
+        raise ValueError(f"S {S}, max_probes {max_probes}, n_rows {n_rows}: need all >= 1")
+    return OnehotTiling(S, max_probes, n_rows)
+
+
+def check_kmajor(tab_k: torch.Tensor, slot_bits: int, device) -> int:
+    """Check K5's prepared table (:func:`.exp_probe_torch.bigtable_kmajor`)
+    for the kernel: int8, on ``device``, ``[1536, n_rows]``, contiguous,
+    16-byte aligned (TMA's rule), with ``n_rows * 128 == 2**slot_bits`` and
+    ``n_rows`` a multiple of 128 (whole K-tiles).  Returns ``n_rows``."""
+    if not isinstance(tab_k, torch.Tensor) or tab_k.dtype != torch.int8:
+        raise TypeError(f"tab_k must be an int8 tensor, got {getattr(tab_k, 'dtype', type(tab_k))}")
+    if tab_k.device != torch.device(device):
+        raise ValueError(f"tab_k is on {tab_k.device}, expected {device}")
+    if tab_k.dim() != 2 or tab_k.shape[0] != ONEHOT_N:
+        raise ValueError(f"tab_k must be [{ONEHOT_N}, n_rows] (bigtable_kmajor), got {tuple(tab_k.shape)}")
+    n_rows = tab_k.shape[1]
+    if n_rows % ONEHOT_TILE_K or n_rows * LANES != 1 << slot_bits:
+        raise ValueError(
+            f"n_rows {n_rows}: need a multiple of {ONEHOT_TILE_K} with n_rows * {LANES} == 2^{slot_bits}"
+        )
+    if not tab_k.is_contiguous():
+        raise ValueError("tab_k must be contiguous")
+    if tab_k.data_ptr() % _ALIGN:
+        raise ValueError(f"tab_k must be {_ALIGN}-byte aligned")
+    return n_rows
+
+
+def _check_jax_layout(tab8: torch.Tensor, slot_bits: int, device) -> None:
     if not isinstance(tab8, torch.Tensor) or tab8.dtype != torch.int8:
         raise TypeError(f"tab8 must be an int8 tensor, got {getattr(tab8, 'dtype', type(tab8))}")
     if tab8.device != device:
@@ -192,8 +291,37 @@ def lookup_onehot(
         raise ValueError(
             f"n_rows {n_rows}: need a multiple of 32 with n_rows * {LANES} == 2^{slot_bits}"
         )
+
+
+def lookup_onehot(
+    tab: torch.Tensor,
+    left: torch.Tensor,
+    right: torch.Tensor,
+    *,
+    slot_bits: int,
+    max_probes: int,
+) -> torch.Tensor:
+    """K5: the lookup of an ``[S, 128]`` tile by one-hot int8 matrix products.
+
+    The counterpart of ``lookup_onehot_pallas``.  On the CPU, ``tab`` is the
+    JAX layout, :func:`.exp_probe_torch.bigtable_device_table`'s
+    ``[4, n_rows, 384]`` int8, and the plain version runs.  On the card it
+    is that table made K-major once by
+    :func:`.exp_probe_torch.bigtable_kmajor`, ``[1536, n_rows]``
+    (:func:`check_kmajor`), and one launch computes every round's product
+    with ``wgmma`` s8 fed by TMA, tiled as :func:`onehot_tiling` says,
+    then resolves the rounds.  The wrapper allocates the
+    ``[3, max_probes, S * 128]`` int32 scratch the two kernels pass the
+    selected words through.
+    """
+    global ONEHOT_LAUNCHES
+    device = _check_pairs(left, right)
+    if left.dim() != 2 or left.shape[1] != LANES:
+        raise ValueError(f"left/right must be [S, {LANES}], got {tuple(left.shape)}")
     if device.type == "cpu":
-        return lookup_onehot_torch(tab8, left, right, slot_bits=slot_bits, max_probes=max_probes)
+        _check_jax_layout(tab, slot_bits, device)
+        return lookup_onehot_torch(tab, left, right, slot_bits=slot_bits, max_probes=max_probes)
+    n_rows = check_kmajor(tab, slot_bits, device)
     out = torch.empty_like(left)
     S = left.shape[0]
     if S == 0:
@@ -201,12 +329,12 @@ def lookup_onehot(
     from ..runtime.build import load_library
 
     lib = load_library()
-    tab_t = tab8.transpose(1, 2).contiguous()
-    _check_aligned("tab8", tab_t)
-    scratch = torch.empty((3, max_probes, S * LANES), dtype=torch.int32, device=device)
+    tiling = onehot_tiling(S, max_probes, n_rows)
+    grid = tiling.grid(torch.cuda.get_device_properties(device).multi_processor_count)
+    scratch = torch.empty(tiling.scratch_shape, dtype=torch.int32, device=device)
     with torch.cuda.device(device):
         rc = lib.tt_lookup_onehot(
-            tab_t.data_ptr(),
+            tab.data_ptr(),
             n_rows,
             slot_bits,
             max_probes,
@@ -215,6 +343,8 @@ def lookup_onehot(
             out.data_ptr(),
             scratch.data_ptr(),
             S,
+            tiling.m_tiles,
+            grid,
             torch.cuda.current_stream(device).cuda_stream,
         )
     _raise_on(lib, rc, "lookup_onehot")

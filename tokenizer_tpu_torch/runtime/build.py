@@ -154,8 +154,9 @@ def load_library() -> ctypes.CDLL:
             ]
             lib.tt_lookup_onehot.restype = _I
             lib.tt_lookup_onehot.argtypes = [
-                _P, _I, _I, _I,  # tab_t [4, 384, n_rows], n_rows, slot_bits, max_probes
-                _P, _P, _P, _P, _I, _P,  # left, right, out, scratch, S, stream
+                _P, _I, _I, _I,  # tab_k [4 * 384, n_rows], n_rows, slot_bits, max_probes
+                _P, _P, _P, _P, _I,  # left, right, out, scratch, S
+                _I, _I, _P,  # m_tiles, grid, stream
             ]
             lib.tt_l2_persist_attrs.restype = _I
             lib.tt_l2_persist_attrs.argtypes = [_P, _P, _P]  # int*, int*, size_t* (out)
