@@ -32,14 +32,20 @@ result line):
    vocabulary (every wave merged by the native C++ heap merge, no card);
    bulk trims and decode are checked on 64 fresh documents;
 6. probe experiments, on the three tables of phase 3 (the same table
-   builds): the row-copy (K3), the L2-resident row (K4) and the one-hot
-   int8 tensor-core (K5, one wgmma GEMM over every round) probe kernels
-   equal their plain PyTorch versions on a ``[16, 128]`` tile and
-   ``PairTable.lookup`` on 65,536 pairs; then the experiment's own path,
-   ``exp_probe.run_arms`` (``tools/exp_cuda_probe.py``), runs every arm
-   on every table, bit-exact, with kernel and plain times; K5's time is
-   set beside its operations bound (2 M K N int8 operations at the
-   H100's 1,979 TOP/s) and beside ``torch._int_mm`` on the same product
+   builds): the row-copy (K3, each pair's probe window copied in one
+   round trip), the L2-resident row (K4, every round's slot loaded before
+   the first compare) and the one-hot int8 tensor-core (K5, one wgmma
+   GEMM over every round) probe kernels equal their plain PyTorch
+   versions on a ``[16, 128]`` tile and ``PairTable.lookup`` on 65,536
+   pairs; then the experiment's own path, ``exp_probe.run_arms``
+   (``tools/exp_cuda_probe.py``), runs every arm on every table on the
+   ``[16, 128]`` tile, and K1's probe, K3 and K4 on a ``[1024, 128]``
+   tile of 131,072 pairs too, bit-exact, with kernel and plain times.
+   Per table and tile, K3's and K4's device time is set beside the
+   tile's byte bound, the bytes of their windows
+   (``probe_cuda.probe_windows``) and K1's probe on the same tile; K5's
+   beside its operations bound (2 M K N int8 operations at the H100's
+   1,979 TOP/s) and ``torch._int_mm`` on the same product
    (``exp_probe.onehot_product``), which only this script calls;
 7. corpus path: a 64 MB cl100k_synth corpus made from ``--seed``, one
    file per document under ``build/``, goes (a) through
@@ -411,13 +417,27 @@ def onehot_yardstick(table, name, device) -> dict:
             "l2_to_smem_bytes": probe_cuda.onehot_tiling(S, mp, a.shape[1]).l2_to_smem_bytes}
 
 
-def probe_bound_us(table) -> float:
-    """The bound of phase 6's [16, 128] lookup: the pairs in and the
-    ids out, and the table bytes its distinct valid pairs read."""
+def tile_key(shape) -> str:
+    return "x".join(map(str, shape))
+
+
+def probe_bound_us(table, shape) -> float:
+    """The bound of phase 6's lookup of one ``make_probes`` tile: the
+    pairs in and the ids out, and the table bytes its distinct valid
+    pairs read."""
     from tokenizer_tpu_torch.ops import exp_probe
 
-    left, right = exp_probe.make_probes(table, exp_probe.SHAPE)
+    left, right = exp_probe.make_probes(table, shape)
     return bound_us(3 * left.nbytes + table_bytes(table, left, right)[0])
+
+
+def window_bytes(table, shape) -> int:
+    """The bytes K3 copies (and K4 loads) for one ``make_probes`` tile."""
+    from tokenizer_tpu_torch.ops import exp_probe, probe_cuda
+
+    left, right = exp_probe.make_probes(table, shape)
+    homes = probe_cuda.pair_homes(left, right, table.slot_bits)
+    return probe_cuda.probe_windows(homes, table.max_probes, table.slot_bits).bytes
 
 
 #: Phase 7 (e) in a process of its own: a torch.profiler session late in
@@ -855,14 +875,20 @@ def main() -> int:
     l2 = probe_cuda.l2_limits(device)
     print(f"phase 6 L2 limits {json.dumps(l2)}", flush=True)
     errs = {name: probe_vs_plain(toks[name].table, name, device, rng) for name in k_res}
+    tiles = (exp_probe.SHAPE, exp_probe.BIG_SHAPE)
     probe_cuda.ASYNC_LAUNCHES = probe_cuda.RESIDENT_LAUNCHES = probe_cuda.ONEHOT_LAUNCHES = 0
     arms = {name: exp_probe.run_arms(toks[name].table, device) for name in k_res}
+    big = {name: exp_probe.run_arms(toks[name].table, device, exp_probe.BIG_SHAPE,
+                                    arms=exp_probe.ROW_ARMS) for name in k_res}
     torch.cuda.synchronize()
     probe_launches = dict(zip(PROBE_KERNELS, (
         probe_cuda.ASYNC_LAUNCHES, probe_cuda.RESIDENT_LAUNCHES, probe_cuda.ONEHOT_LAUNCHES,
     )))
-    for name, recs in arms.items():
-        for rec in recs:
+    # per table, tile and arm: the run_arms record
+    by_tile = {name: {tile_key(rec["shape"]): {} for rec in arms[name] + big[name]} for name in k_res}
+    for name in k_res:
+        for rec in arms[name] + big[name]:
+            by_tile[name][tile_key(rec["shape"])][rec["arm"]] = rec
             check(rec["bit_exact"] and rec["plain_bit_exact"],
                   f"{name} {rec['arm']}: not bit-exact against PairTable.lookup ({rec})")
             print(f"phase 6 run_arms {name} {rec['arm']} {rec['shape']}: bit-exact; kernel "
@@ -870,6 +896,21 @@ def main() -> int:
                   f"{exp_probe.REPS}, CUDA events), {rec['plain_device_us']} us of device "
                   "time (torch.profiler)",
                   flush=True)
+    rows = {}  # K3 / K4 per table and tile: bound and window bytes
+    for name in k_res:
+        table = toks[name].table
+        for tile in tiles:
+            key = tile_key(tile)
+            recs = by_tile[name][key]
+            b_us, w_bytes = probe_bound_us(table, tile), window_bytes(table, tile)
+            rows[(name, key)] = {"bound_us": b_us, "window_bytes": w_bytes}
+            k1 = recs["lookup_pairs"]["device_us"]
+            for arm in ("probe_rows_async", "probe_rows_resident"):
+                us = recs[arm]["device_us"]
+                print(f"phase 6 {arm} {name} {list(tile)}: {us:.3f} us (queued); byte bound "
+                      f"{b_us:.4f} us, {b_us / us:.3%} of it; windows {w_bytes} bytes; K1's "
+                      f"probe on the same tile {k1:.3f} us ({us / k1:.2f}x); card {smi}",
+                      flush=True)
     for k, n in probe_launches.items():
         check(n > 0, f"the probe experiment's path did not launch {k}")
     check(probe_cuda.l2_limits(device)["persisting_l2_bytes"] == l2["persisting_l2_bytes"],
@@ -935,8 +976,8 @@ def main() -> int:
     for arm, source, replaces in exp_probe.ARMS:
         if arm not in probe_launches:
             continue  # the merge kernel's own probe, reported above
-        by_table = {name: next(r for r in recs if r["arm"] == arm) for name, recs in arms.items()}
-        bounds = {name: probe_bound_us(toks[name].table) for name in by_table}
+        by_table = {name: by_tile[name][tile_key(exp_probe.SHAPE)][arm] for name in arms}
+        bounds = {name: rows[(name, tile_key(exp_probe.SHAPE))]["bound_us"] for name in by_table}
         probes.append({
             "name": arm,
             "route": "cuda",
@@ -974,11 +1015,22 @@ def main() -> int:
                 "l2_to_smem_bytes_by_table": {n: r["l2_to_smem_bytes"] for n, r in k5.items()},
             })
         else:
-            # The rows this formulation moves: three 512-byte rows a round.
-            probes[-1]["row_bytes_by_table"] = {
-                name: exp_probe.SHAPE[0] * 128 * toks[name].table.max_probes * 3 * 512
-                for name in by_table
-            }
+            # Both tiles; the windows are the bytes this formulation moves.
+            per = {name: {tile_key(t): by_tile[name][tile_key(t)] for t in tiles} for name in arms}
+            probes[-1].update({
+                "device_us_by_table_and_tile": {
+                    name: {k: r[arm]["device_us"] for k, r in t.items()} for name, t in per.items()},
+                "plain_device_us_by_table_and_tile": {
+                    name: {k: r[arm]["plain_device_us"] for k, r in t.items()}
+                    for name, t in per.items()},
+                "bound_us_by_table_and_tile": {
+                    name: {k: rows[(name, k)]["bound_us"] for k in t} for name, t in per.items()},
+                "window_bytes_by_table": {
+                    name: {k: rows[(name, k)]["window_bytes"] for k in t} for name, t in per.items()},
+                "lookup_pairs_us_by_table_and_tile": {
+                    name: {k: r["lookup_pairs"]["device_us"] for k, r in t.items()}
+                    for name, t in per.items()},
+            })
     print(smi, flush=True)
     print(json.dumps({"kernels": [kernel, *probes]}), flush=True)
     print(json.dumps({"ok": True, "device": {

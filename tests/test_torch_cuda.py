@@ -387,6 +387,69 @@ def test_onehot_kernel_matches_plain_and_pair_table(cuda, onehot_table, S):
     assert (want != 2**31 - 1).sum() >= 16 * S  # the table's keys hit
 
 
+_ROW_KERNELS = ("probe_rows_async", "probe_rows_resident")
+
+
+def _row_kernel_vs_plain(cuda, table, kernel, left, right):
+    """One launch of K3 or K4 on the pairs; equal to probe_rows_torch at
+    the table's max_probes and to PairTable.lookup.  Returns the ids."""
+    from tokenizer_tpu_torch.ops import probe_cuda
+    from tokenizer_tpu_torch.ops.exp_probe import l2_for
+    from tokenizer_tpu_torch.ops.exp_probe_torch import probe_rows_torch, table_planes_2d
+
+    planes = table_planes_2d(table, cuda)
+    kw = dict(slot_bits=table.slot_bits, max_probes=table.max_probes)
+    dl, dr = torch.from_numpy(left).to(cuda), torch.from_numpy(right).to(cuda)
+    before = getattr(probe_cuda, _COUNTERS[kernel])
+    with l2_for(kernel, table, cuda):
+        got = getattr(probe_cuda, kernel)(planes, dl, dr, **kw)
+        torch.cuda.synchronize()
+    assert getattr(probe_cuda, _COUNTERS[kernel]) == before + 1
+    assert torch.equal(got, probe_rows_torch(planes, table.slot_bits, table.max_probes, dl, dr))
+    want = table.lookup(left, right)
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+    return want
+
+
+@pytest.mark.parametrize("extra", [0, 20])
+@pytest.mark.parametrize("count", [1, 31, 2049, 131072])
+@pytest.mark.parametrize("kernel", _ROW_KERNELS)
+def test_row_kernels_match_plain_and_pair_table(cuda, onehot_table, kernel, count, extra):
+    """K3 and K4 on every table the port serves, one launch per call: the
+    edge pairs (homes in row 0 and the last row, chains that wrap, extreme
+    and negative ids) first, then make_probes pairs, as a 1-D tensor of
+    ``count`` pairs; with max_probes 20 beyond the table's too (a second
+    pass for a chain that has not ended)."""
+    import dataclasses
+
+    from tokenizer_tpu_torch.ops.exp_probe import make_probes
+
+    table = dataclasses.replace(onehot_table, max_probes=onehot_table.max_probes + extra)
+    e_l, e_r = _edge_pairs(table, np.random.default_rng(count))
+    p_l, p_r = make_probes(table, (-(-count // 128), 128), seed=count)
+    left = np.concatenate([e_l, p_l.reshape(-1)])[:count]
+    right = np.concatenate([e_r, p_r.reshape(-1)])[:count]
+    want = _row_kernel_vs_plain(cuda, table, kernel, left, right)
+    if count >= 2049:
+        assert (want != 2**31 - 1).sum() >= count // 4  # half of make_probes' pairs are keys
+
+
+@pytest.mark.parametrize("kernel", _ROW_KERNELS)
+def test_row_kernels_take_several_passes_on_a_dense_table(cuda, kernel):
+    """Every key of a table whose chains are longer than one pass, and as
+    many misses, some with negative ids."""
+    from test_torch_probe import dense_table
+
+    table = dense_table()
+    assert table.max_probes > 32
+    keys = np.nonzero(table.key_left >= 0)[0]
+    rng = np.random.default_rng(2)
+    left = np.concatenate([table.key_left[keys], rng.integers(-3, 1000, 300)]).astype(np.int32)
+    right = np.concatenate([table.key_right[keys], rng.integers(-3, 10**6, 300)]).astype(np.int32)
+    want = _row_kernel_vs_plain(cuda, table, kernel, left, right)
+    np.testing.assert_array_equal(want[: keys.size], table.values[keys])
+
+
 def test_onehot_wrapper_takes_only_the_prepared_table(cuda, gpt2_pair_table):
     """On the card K5 takes the K-major table on the pairs' card, aligned;
     the JAX layout, a CPU table or a misaligned one raise, and launch nothing."""

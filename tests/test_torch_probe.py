@@ -394,3 +394,144 @@ def test_runner_refuses_cuda_without_a_card_and_runs_plain_on_cpu(monkeypatch, c
     assert lines[0]["table_slots"] == 2**19 and lines[0]["probe_shape"] == [1, 128]
     assert [x["arm"] for x in lines[1:]] == [a for a, _s, _r in exp_probe.ARMS]
     assert all(x["plain_bit_exact"] for x in lines[1:])
+
+
+# -- K3's and K4's window plan ---------------------------------------------------
+
+
+def dense_table():
+    """128 slots holding 124 keys: chains run through several 16-round
+    passes of K3 and K4 and wrap past the last slot."""
+    from tokenizer_tpu.ops.pair_table import PairTable
+
+    rng = np.random.default_rng(8)
+    left = rng.integers(0, 1000, 124).astype(np.int32)
+    right = rng.integers(0, 1000, 124).astype(np.int32) * 1000 + np.arange(124, dtype=np.int32)
+    kl, kr, vv, mp = PairTable._insert_all(left, right, np.arange(124, dtype=np.int32) + 5, 7)
+    assert mp > 2 * probe_cuda.PASS_ROUNDS
+    return PairTable(key_left=kl, key_right=kr, values=vv, slot_bits=7, max_probes=mp,
+                     byte_to_id=np.arange(256, dtype=np.int32), n_vocab=1000,
+                     max_token_len=1, n_pairs=124)
+
+
+@pytest.fixture(scope="module", params=["gpt2", "cl100k_synth", "o200k_synth", "dense"])
+def window_table(request):
+    """The three tables the port serves, and the dense 128-slot table."""
+    if request.param == "dense":
+        return dense_table()
+    require_vocab(request.param)
+    from tokenizer_tpu.vocab import Vocabulary
+
+    return Vocabulary.for_encoding(request.param, allow_fetch=False).pair_table()
+
+
+def _window_pairs(table):
+    """A make_probes tile (hits, misses, negatives), keys homed in the
+    plane's first and last row, and random pairs (misses, mostly) homed
+    in the last 16 slots, whose chains wrap, or in the first 4."""
+    n = table.n_slots
+    left, right = (a.reshape(-1) for a in exp_probe.make_probes(table, (2, 128), seed=4))
+    keys = np.nonzero(table.key_left >= 0)[0]
+    k_home = probe_cuda.pair_homes(table.key_left[keys], table.key_right[keys], table.slot_bits)
+    ends = keys[(k_home < 128) | (k_home >= n - 128)][:40]
+    rng = np.random.default_rng(12)
+    cand_l = rng.integers(0, max(table.n_vocab, 2), 1 << 20).astype(np.int32)
+    cand_r = rng.integers(0, max(table.n_vocab, 2), 1 << 20).astype(np.int32)
+    home = probe_cuda.pair_homes(cand_l, cand_r, table.slot_bits)
+    wrap = np.nonzero(home >= n - 16)[0][:40]
+    low = np.nonzero(home < 4)[0][:8]
+    assert wrap.size >= 4 and low.size >= 1 and ends.size >= 4
+    return (np.concatenate([left, table.key_left[ends], cand_l[wrap], cand_l[low]]),
+            np.concatenate([right, table.key_right[ends], cand_r[wrap], cand_r[low]]))
+
+
+def _answer_from_windows(table, w, left, right):
+    """A numpy model of K3: each pass reads only the pair's windows of the
+    three planes, walking its rounds in order; any read outside the
+    spans fails.  Returns the ids and the passes each pair took."""
+    planes = (table.key_left, table.key_right, table.values)
+    out = np.full(left.shape, MAX_RANK, np.int32)
+    live = w.homes >= 0
+    taken = np.zeros(left.shape, np.int64)
+    cols = np.arange(probe_cuda.WINDOW_SLOTS)
+    for k in range(w.passes):
+        starts, lengths, off = w.spans(k)
+        taken += live
+        held = lengths.sum(1)
+        assert (held[live] > 0).all()
+        # the window: the first span, then the second from slot 0
+        slot = np.where(cols < lengths[:, :1], starts[:, :1] + cols, cols - lengths[:, :1])
+        inside = cols < held[:, None]
+        win = [np.where(inside, p[np.where(inside, slot, 0)], -99) for p in planes]
+        rows = np.arange(left.size)
+        for j in range(w.rounds(k)):
+            col = off + j
+            assert (col[live] < held[live]).all(), "a round outside the window"
+            kl, kr, vv = (x[rows, np.minimum(col, probe_cuda.WINDOW_SLOTS - 1)] for x in win)
+            hit = live & (kl == left) & (kr == right)
+            out[hit] = vv[hit]
+            live = live & (kl != -1) & ~hit
+    return out, taken
+
+
+@pytest.mark.parametrize("extra", [0, 20])
+def test_windows_cover_every_chain_slot_once(window_table, extra):
+    """Every slot of every pass's rounds lies in exactly one of the pair's
+    spans; spans start 16-byte aligned, lie inside the plane, and hold at
+    most WINDOW_SLOTS; the bytes are the spans' sum over pairs."""
+    table = window_table
+    n, mp = table.n_slots, table.max_probes + extra
+    left, right = _window_pairs(table)
+    hand = [0, 3, n - 1, n - mp + 1, n - 4]  # where the chain starts or ends at an edge
+    homes = np.concatenate([probe_cuda.pair_homes(left, right, table.slot_bits), hand])
+    w = probe_cuda.probe_windows(homes, mp, table.slot_bits)
+    valid = w.homes >= 0
+    assert w.passes == -(-mp // 16) and (~valid).sum() >= 5
+    total = 0
+    for k in range(w.passes):
+        starts, lengths, off = w.spans(k)
+        assert (starts % 4 == 0).all() and (lengths % 4 == 0).all()
+        assert (starts + lengths <= n).all() and (starts[:, 1] == 0).all()
+        assert (lengths.sum(1) <= probe_cuda.WINDOW_SLOTS).all()
+        assert (lengths[~valid] == 0).all() and (off < 4).all()
+        rounds = (w.homes[:, None] + k * 16 + np.arange(w.rounds(k))) % n
+        inside = [(rounds >= starts[:, s : s + 1]) & (rounds < (starts + lengths)[:, s : s + 1])
+                  for s in (0, 1)]
+        assert ((inside[0].astype(int) + inside[1])[valid] == 1).all()
+        # round j sits at offset + j of the spans laid end to end
+        at = off[:, None] + np.arange(w.rounds(k))
+        back = np.where(at < lengths[:, :1], starts[:, :1] + at, at - lengths[:, :1])
+        np.testing.assert_array_equal(back[valid], rounds[valid])
+        total += 12 * int(lengths.sum())
+    assert w.bytes == total
+    if mp <= 16:
+        assert w.bytes <= valid.sum() * probe_cuda.PASS_BYTES
+
+
+@pytest.mark.parametrize("extra", [0, 20])
+def test_answers_from_windows_alone_equal_the_lookup(window_table, extra):
+    """The numpy model that reads only the windows equals PairTable.lookup
+    and probe_rows_torch at the same max_probes, on make_probes pairs and
+    on chains that start at the plane's ends and wrap."""
+    import dataclasses
+
+    table = dataclasses.replace(window_table, max_probes=window_table.max_probes + extra)
+    left, right = _window_pairs(table)
+    w = probe_cuda.probe_windows(probe_cuda.pair_homes(left, right, table.slot_bits),
+                                 table.max_probes, table.slot_bits)
+    got, taken = _answer_from_windows(table, w, left, right)
+    np.testing.assert_array_equal(got, table.lookup(left, right))
+    np.testing.assert_array_equal(got, _rows(table, left, right))
+    assert (got != MAX_RANK).sum() >= 100 and taken.max() <= w.passes
+    if table.slot_bits == 7:  # the dense table: chains run through several passes
+        assert taken.max() >= 3
+
+
+def test_probe_windows_rejects_bad_plans():
+    for homes, mp, sb in (([0], 0, 19), ([0], 9, 6), ([0], 9, 32), ([-2], 9, 19), ([1 << 19], 9, 19)):
+        with pytest.raises(ValueError):
+            probe_cuda.probe_windows(homes, mp, sb)
+    w = probe_cuda.probe_windows([0, -1, (1 << 19) - 1], 9, 19)
+    # home 0: slots 0-8 in one 12-slot span; -1: nothing; n - 1: slots n-4..n-1,
+    # then 0-7 from slot 0
+    assert w.bytes == 12 * (12 + 4 + 8) and w.passes == 1

@@ -33,6 +33,8 @@ PORT_FILES = sorted(
         REPO / "tools" / "fuzz_campaign_torch.py",
         REPO / "tools" / "mesh_scaling.py",
         REPO / "tools" / "onehot_ab.py",
+        REPO / "tools" / "ab_turns.py",
+        REPO / "tools" / "rows_ab.py",
     )
 )
 
@@ -84,6 +86,8 @@ def test_port_files_cover_the_host_layers():
         "tools/fuzz_campaign_torch.py",
         "tools/mesh_scaling.py",
         "tools/onehot_ab.py",
+        "tools/ab_turns.py",
+        "tools/rows_ab.py",
     ):
         assert rel in PORT_FILES
 

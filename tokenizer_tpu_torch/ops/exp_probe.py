@@ -32,6 +32,8 @@ from .merge_torch import device_table, hash_slots, lookup_pairs_torch
 
 __all__ = [
     "ARMS",
+    "BIG_SHAPE",
+    "ROW_ARMS",
     "SHAPE",
     "arm_calls",
     "device_us",
@@ -45,6 +47,13 @@ __all__ = [
 
 #: One merge wave's worth of probes (2,048), the JAX runners' tile.
 SHAPE = (16, 128)
+#: 131,072 pairs, as many as 16 rows of the packer's widest tile (8,192
+#: columns): large enough that a probe kernel's time is its work, not its
+#: launch.  K5 is not run there (its plain version's one-hot would take
+#: up to 8.6 GB).
+BIG_SHAPE = (1024, 128)
+#: The arms that run at BIG_SHAPE.
+ROW_ARMS = ("lookup_pairs", "probe_rows_async", "probe_rows_resident")
 REPS = 5
 
 #: Device-side rows that are the profiler's own bookkeeping.
@@ -214,19 +223,22 @@ def l2_for(arm: str, table, device):
     return contextlib.nullcontext()
 
 
-def run_arms(table, device, shape=SHAPE, reps: int = REPS) -> List[dict]:
-    """Run every arm on ``device``; one record per arm.
+def run_arms(table, device, shape=SHAPE, reps: int = REPS, arms=None) -> List[dict]:
+    """Run every arm (or those named in ``arms``) on ``device`` on one
+    ``make_probes`` tile of ``shape``; one record per arm, its ``shape``
+    naming the tile.
 
     Each record has ``plain_bit_exact`` (the plain PyTorch version equals
     ``PairTable.lookup``).  On a CUDA device it also has ``bit_exact`` (the
     kernel does); ``ms`` and ``plain_ms``, medians of ``reps`` CUDA-event
-    timings of one call after a warm-up, with the table warm in L2 (for
-    calls of a few µs on the card these measure the host's enqueue);
-    ``device_us``, the kernel's device time per call from
-    :func:`queued_ms`; and ``plain_device_us``, the plain version's summed
-    device rows from :func:`device_us` (its host time, milliseconds a
-    call, is far longer than its device time, so it is not queued).  K4's
-    arm runs inside :func:`.probe_cuda.persisting_l2` sized to its planes.
+    timings of one call after a warm-up, with the table warm in L2 (at
+    ``SHAPE``, where a probe kernel takes a few µs, ``ms`` measures the
+    host's enqueue, not the kernel); ``device_us``, the kernel's device
+    time per call from :func:`queued_ms`, at every tile; and
+    ``plain_device_us``, the plain version's summed device rows from
+    :func:`device_us` (its host time, milliseconds a call, is far longer
+    than its device time, so it is not queued).  K4's arm runs inside
+    :func:`.probe_cuda.persisting_l2` sized to its planes.
     """
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -238,6 +250,8 @@ def run_arms(table, device, shape=SHAPE, reps: int = REPS) -> List[dict]:
     calls = arm_calls(table, device)
     records = []
     for arm, source, replaces in ARMS:
+        if arms is not None and arm not in arms:
+            continue
         kernel = functools.partial(calls[arm][0], left, right)
         plain = functools.partial(calls[arm][1], left, right)
         rec = {"arm": arm, "source": source, "replaces": replaces, "device": str(device),

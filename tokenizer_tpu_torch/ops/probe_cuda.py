@@ -5,7 +5,8 @@ Each keeps the JAX package's layout and computes ``PairTable.lookup``:
 * :func:`probe_rows_async`: K3, ``csrc/probe_rows.cu`` ``tt_probe_rows_async``,
   counterpart of ``tokenizer_tpu.ops.exp_pallas_dma.probe_pallas_dma``;
 * :func:`probe_rows_resident`: K4, ``tt_probe_rows_resident``, counterpart
-  of ``probe_pallas_vmem``;
+  of ``probe_pallas_vmem``; :func:`probe_windows` is the window of slots
+  each pass of either kernel reads per pair;
 * :func:`lookup_onehot`: K5, ``csrc/lookup_onehot.cu`` ``tt_lookup_onehot``,
   counterpart of ``tokenizer_tpu.ops.exp_pallas_bigtable.lookup_onehot_pallas``;
   :func:`onehot_tiling` is the tiling its kernel walks.
@@ -29,19 +30,26 @@ import torch
 
 from .exp_probe_torch import LANES, lookup_onehot_torch, probe_rows_torch
 from .merge_cuda import _check_int32, _raise_on
+from .pair_table import hash_pair_u32
 
 __all__ = [
     "ASYNC_LAUNCHES",
     "ONEHOT_LAUNCHES",
     "OnehotTiling",
+    "PASS_BYTES",
+    "PASS_ROUNDS",
+    "ProbeWindows",
     "RESIDENT_LAUNCHES",
+    "WINDOW_SLOTS",
     "check_kmajor",
     "l2_limits",
     "lookup_onehot",
     "onehot_tiling",
+    "pair_homes",
     "persisting_l2",
     "probe_rows_async",
     "probe_rows_resident",
+    "probe_windows",
 ]
 
 #: Launches of K3 / K4 / K5 in this process.
@@ -114,11 +122,12 @@ def probe_rows_async(
 ) -> torch.Tensor:
     """K3: (left, right) -> merged id through ``[n_rows, 128]`` planes.
 
-    The counterpart of ``probe_pallas_dma``: per probe round, each pair's
-    three rows are copied into shared memory by the bulk asynchronous copy
-    unit, completing on an mbarrier, and the lane is read there.  Any
-    shape of int32 pairs; ``planes`` as :func:`.exp_probe_torch.table_planes_2d`
-    makes them.
+    The counterpart of ``probe_pallas_dma``: each pair's window of every
+    plane (:func:`probe_windows`) is copied into shared memory by the bulk
+    asynchronous copy unit, 32 pairs completing on one mbarrier, so a pair
+    waits for one round trip per pass, and the pair's rounds are read
+    there in order.  Any shape of int32 pairs; ``planes`` as
+    :func:`.exp_probe_torch.table_planes_2d` makes them.
     """
     global ASYNC_LAUNCHES
     device = _check_pairs(left, right)
@@ -144,9 +153,10 @@ def probe_rows_resident(
 
     The counterpart of ``probe_pallas_vmem``: the launch marks the planes
     persisting with an access-policy window (from the lowest plane to the
-    end of the highest, so the one buffer of ``table_planes_2d``), each
-    row is one coalesced int4 load per lane and the lane is resolved by a
-    warp shuffle.  The window draws on the set-aside that
+    end of the highest, so the one buffer of ``table_planes_2d``); a
+    half-warp serves a pair, each lane loading one round's slot of the
+    three planes before any compare, and a warp ballot picks the first
+    round that is empty or a hit.  The window draws on the set-aside that
     :func:`persisting_l2` reserves; without one it changes nothing.
     """
     global RESIDENT_LAUNCHES
@@ -163,6 +173,84 @@ def probe_rows_resident(
     )
     RESIDENT_LAUNCHES += 1
     return out
+
+
+#: Probe rounds one pass of K3 or K4 covers.  ``PairTable.build`` keeps
+#: max_probes <= 16 below 2^26 slots, so one pass serves every table it makes.
+PASS_ROUNDS = 16
+#: Slots of one plane that a pass of K3 copies for a pair: 16 rounds from any
+#: slot, the start rounded down and the end up to 16 bytes (4 slots).
+WINDOW_SLOTS = PASS_ROUNDS + 4
+#: Bytes one pass can hold per pair: its window of the three int32 planes.
+PASS_BYTES = 3 * 4 * WINDOW_SLOTS
+
+
+@dataclass(frozen=True)
+class ProbeWindows:
+    """The slots K3 copies, and K4 loads, for each pair of a call.
+
+    Pass ``k`` of pair ``i`` covers rounds ``16 k .. 16 k + 15`` (the last
+    pass fewer) of the chain from ``homes[i]``; a pair whose chain ended in
+    an earlier pass takes no later one.  :meth:`spans` gives each pass's one
+    or two slot spans, the second from slot 0 when the chain wraps past the
+    last slot; ``csrc/probe_rows.cu`` ``pass_window`` does the same
+    arithmetic.  A pair with a negative id (``homes == -1``) reads nothing.
+    """
+
+    homes: np.ndarray  # int64 [n]
+    max_probes: int
+    slot_bits: int
+
+    @property
+    def passes(self) -> int:
+        return -(-self.max_probes // PASS_ROUNDS)
+
+    def rounds(self, k: int) -> int:
+        """Rounds pass ``k`` covers."""
+        return min(PASS_ROUNDS, self.max_probes - k * PASS_ROUNDS)
+
+    def spans(self, k: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Pass ``k``'s ``(starts [n, 2], lengths [n, 2], offsets [n])`` in
+        slots: the spans ``[start, start + length)``, multiples of 4 slots
+        (16 bytes), and where round ``16 k`` of each pair sits in its two
+        spans laid end to end (round ``16 k + j`` at ``offset + j``).
+        Pairs with a negative id get lengths 0."""
+        n, homes = 1 << self.slot_bits, self.homes
+        s0 = (homes + k * PASS_ROUNDS) & (n - 1)
+        start = s0 & ~3
+        end = s0 + self.rounds(k)  # one past the last slot, unwrapped
+        wrap = end > n
+        len1 = np.where(wrap, n - start, (end + 3) // 4 * 4 - start)
+        len2 = np.where(wrap, (end - n + 3) // 4 * 4, 0)
+        valid = homes >= 0
+        starts = np.stack([np.where(valid, start, 0), np.zeros_like(start)], axis=-1)
+        lengths = np.stack([np.where(valid, len1, 0), np.where(valid, len2, 0)], axis=-1)
+        return starts, lengths, np.where(valid, s0 - start, 0)
+
+    @property
+    def bytes(self) -> int:
+        """Bytes of the three planes that every pass's spans hold, summed
+        over the pairs: what a call copies when every chain runs all its
+        passes, and exactly what it copies when ``max_probes <= 16``."""
+        return sum(3 * 4 * int(self.spans(k)[1].sum()) for k in range(self.passes))
+
+
+def probe_windows(homes, max_probes: int, slot_bits: int) -> ProbeWindows:
+    """K3's and K4's windows for pairs whose home slots are ``homes`` (any
+    shape, flattened; -1 for a pair with a negative id)."""
+    if max_probes < 1 or not 7 <= slot_bits <= 31:
+        raise ValueError(f"max_probes {max_probes}, slot_bits {slot_bits}: need >= 1 and 7..31")
+    homes = np.asarray(homes, np.int64).reshape(-1)
+    if homes.size and (homes.min() < -1 or homes.max() >= 1 << slot_bits):
+        raise ValueError(f"homes must be -1 or slots below 2^{slot_bits}")
+    return ProbeWindows(homes, max_probes, slot_bits)
+
+
+def pair_homes(left, right, slot_bits: int) -> np.ndarray:
+    """Home slot of each (left, right) pair, -1 where an id is negative."""
+    left, right = np.asarray(left, np.int32), np.asarray(right, np.int32)
+    valid = (left >= 0) & (right >= 0)
+    return np.where(valid, hash_pair_u32(left, right, slot_bits), -1).astype(np.int64).reshape(-1)
 
 
 #: K5's tiles (``csrc/lookup_onehot.cu``): pair-round rows, columns (one

@@ -36,12 +36,13 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
-import subprocess
 import sys
+from functools import partial
 from pathlib import Path
 
-ROOT = Path(__file__).resolve().parent.parent
+import ab_turns
+
+ROOT = ab_turns.ROOT
 TABLES = ("gpt2", "cl100k_synth", "o200k_synth")
 SHAPE = (16, 128)
 #: NVIDIA H100 SXM dense int8 tensor-core peak, operations/s (data sheet).
@@ -49,26 +50,17 @@ INT8_OPS_PER_S = 1979e12
 N_COLS = 4 * 3 * 128
 
 
-def smi() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60)
-    return out.stdout.strip().splitlines()[0] if out.returncode == 0 else "nvidia-smi failed"
-
-
 def ptxas_lines(report: str) -> dict:
-    """ptxas -v lines of each onehot entry function, by mangled name."""
-    by_fn, fn = {}, None
-    for line in report.splitlines():
-        if "Compiling entry function" in line or "Function properties for" in line:
-            fn = line.split("'")[1] if "'" in line else line.split()[-1]
-        elif fn and "onehot" in fn and ("registers" in line or "spill" in line or "smem" in line):
-            by_fn.setdefault(fn, []).append(line.split(":", 1)[-1].strip())
-        if "wgmma" in line or "setmaxnreg" in line:
-            by_fn.setdefault("advisories", []).append(line.strip())
+    """ptxas -v lines of each onehot entry function, and ptxas's wgmma
+    and setmaxnreg advisories."""
+    by_fn = ab_turns.ptxas_lines(report, lambda fn: "onehot" in fn)
+    advisories = [l.strip() for l in report.splitlines() if "wgmma" in l or "setmaxnreg" in l]
+    if advisories:
+        by_fn["advisories"] = advisories
     return by_fn
 
 
-def worker(tables, reps: int) -> None:
+def worker(root: Path, tables, reps: int) -> None:
     import numpy as np
     import torch
 
@@ -83,7 +75,7 @@ def worker(tables, reps: int) -> None:
     new = hasattr(probe_cuda, "onehot_tiling")
     _, report = build.build_library()
     lib = build.load_library()
-    print(json.dumps({"tree": str(ROOT_USED), "new_kernel": new,
+    print(json.dumps({"tree": str(root), "new_kernel": new,
                       "ptxas": ptxas_lines(report)}), flush=True)
     for name in tables:
         table = Vocabulary.for_encoding(name, allow_fetch=False).pair_table()
@@ -146,7 +138,7 @@ def worker(tables, reps: int) -> None:
         ops = 2 * m_rows * n_rows * N_COLS
         bound_us = ops / INT8_OPS_PER_S * 1e6
         print(json.dumps({
-            "tree": str(ROOT_USED), "new_kernel": new, "table": name, "shape": list(SHAPE),
+            "tree": str(root), "new_kernel": new, "table": name, "shape": list(SHAPE),
             "M": m_rows, "K": n_rows, "N": N_COLS, "ops": ops, "ops_bound_us": bound_us,
             "wrapper_us": wrapper_ms * 1e3, "kernel_us": kernel_ms * 1e3,
             "kernel_share_of_bound": bound_us / (kernel_ms * 1e3),
@@ -157,50 +149,15 @@ def worker(tables, reps: int) -> None:
             raise SystemExit(f"onehot_ab: {name} not exact: {exact}, {lib_rec}")
 
 
-def turns(parent: Path, tables, reps: int, out: Path) -> int:
-    card = smi()
-    print(card, flush=True)
-    env = dict(os.environ)
-    env.setdefault("TOKENIZER_TPU_CACHE_DIR", str(ROOT / "build" / "onehot_ab_cache"))
-    records = []
-    for root in (parent, ROOT, ROOT, parent):
-        run = subprocess.run(
-            [sys.executable, __file__, "--root", str(root), "--tables", ",".join(tables),
-             "--reps", str(reps)],
-            capture_output=True, text=True, timeout=1200, env=env, cwd=str(root))
-        for line in run.stdout.splitlines():
-            print(line, flush=True)
-            if line.startswith("{"):
-                records.append(json.loads(line))
-        if run.returncode:
-            print(run.stderr[-4000:], file=sys.stderr, flush=True)
-            return run.returncode
-    out.parent.mkdir(parents=True, exist_ok=True)
-    out.write_text(json.dumps({"card": card, "order": ["parent", "change", "change", "parent"],
-                               "records": records}, indent=1))
-    print(card, flush=True)
-    return 0
-
-
-ROOT_USED = ROOT
-
-
 def main(argv=None) -> int:
-    global ROOT_USED
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tables", default=",".join(TABLES))
     ap.add_argument("--reps", type=int, default=10)
-    ap.add_argument("--root", type=Path, default=None, help="import tokenizer_tpu_torch from here")
-    ap.add_argument("--parent", type=Path, default=None, help="run in turns against this tree")
-    ap.add_argument("--out", type=Path, default=ROOT / "build" / "onehot_ab.json")
+    ab_turns.add_arguments(ap, ROOT / "build" / "onehot_ab.json")
     args = ap.parse_args(argv)
     tables = [t for t in args.tables.split(",") if t]
-    if args.parent is not None:
-        return turns(args.parent.resolve(), tables, args.reps, args.out)
-    ROOT_USED = (args.root or ROOT).resolve()
-    sys.path.insert(0, str(ROOT_USED))
-    worker(tables, args.reps)
-    return 0
+    return ab_turns.run(args, __file__, ["--tables", ",".join(tables), "--reps", str(args.reps)],
+                        partial(worker, tables=tables, reps=args.reps))
 
 
 if __name__ == "__main__":
