@@ -71,14 +71,28 @@ result line):
    of a mesh tokenizer must equal phase 5's host reference document for
    document, with the merge kernel launched on every shard's stream and
    one upload per shard and wave; (c) ``tools/fuzz_campaign_torch.py``'s
-   ``encode``, ``trim`` and ``mesh`` bodies on the card for
-   ``CAMPAIGN_S`` seconds each from a fixed seed, without a mismatch.
+   ``encode``, ``trim``, ``threads`` and ``mesh`` bodies on the card for
+   ``CAMPAIGN_S`` seconds each from a fixed seed, without a mismatch;
+9. parity on the card, every wave forced onto the merge kernel: (a)
+   lib.rs.txt under gpt2, r50k_base, p50k_base, p50k_edit, cl100k_synth
+   and o200k_synth through ``encode_batch`` equals the committed
+   ``tests/testdata/tokens_*.json`` (the synthetic ones are tiktoken's ids,
+   ``tools/synth_goldens.py``) and decodes back; (b) phase 5's 8 MB cold
+   corpus through an o200k_synth ``encode_batch_stream`` (pattern 3, the
+   2^21-slot table) equals a host-routed o200k_synth tokenizer document
+   for document; (c) cl100k_synth cases with waves in flight while the
+   host scans on (``IN_FLIGHT``), each against the host engine: a stream
+   whose dedup generations rotate between chunks, a stream closed with a
+   chunk deferred, bulk calls between a stream's chunks on the deferred
+   chunk's pieces, device chunks followed by host-routed emit chunks, and
+   four threads on one tokenizer.
 
 The merge kernels' launch counts are reset before phase 4 and read after
 phase 5 (the first merge kernel must not be launched there), reset
-again just before phase 7 (a) and read after it, and again (with the
-per-stream counts) just before phase 8 (b) and read after it; the probe
-kernels' counts are reset just before ``run_arms`` and read after it.
+again just before phase 7 (a) and read after it, again (with the
+per-stream counts) just before phase 8 (b) and read after it, and again
+just before phase 9 and read after it; the probe kernels' counts are
+reset just before ``run_arms`` and read after it.
 The last lines are the card's name and power limit, the
 ``{"kernels": [...]}`` record, and ``{"ok": true, "device": {...}}``.
 Builds go under ``build/`` in the checkout.  The script imports nothing
@@ -729,13 +743,265 @@ def mesh_phase(docs: list, want: list, nbytes: int, smi: str) -> dict:
     campaign = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(campaign)
     iterations = {}
-    for mode in ("encode", "trim", "mesh"):
+    for mode in ("encode", "trim", "threads", "mesh"):
         its, failure = campaign.run(mode, CAMPAIGN_SEED, CAMPAIGN_S, "cuda", log=lambda m: None)
         check(failure is None, f"phase 8 (c): {failure}")
         iterations[mode] = its
     print(f"phase 8 (c) campaign bodies on the card, seed {CAMPAIGN_SEED}, {CAMPAIGN_S:.0f} s "
           f"each, no mismatch: iterations {json.dumps(iterations)}", flush=True)
     return {"launches": launches, "MBps": nbytes / mesh_s / 1e6, "shards": len(devices)}
+
+
+def forced(tok):
+    """Every wave of ``tok`` onto the merge kernel, however small."""
+    tok._host_pp = float("inf")
+    tok._host_wave_max = 0
+    return tok
+
+
+def fresh_words(rng, n: int) -> list:
+    """``n`` random seven-letter words: each one piece, first seen here."""
+    return ["".join(map(chr, 97 + rng.integers(0, 26, size=7))) for _ in range(n)]
+
+
+def word_soup(rng, vocab: list, docs: int, words: int) -> list:
+    """``docs`` documents of ``words`` words drawn from ``vocab``, each with
+    a CJK word and a number."""
+    out = []
+    for d in range(docs):
+        picks = rng.integers(0, len(vocab), size=words)
+        cjk = "".join(map(chr, rng.integers(0x4E00, 0x4E00 + 2000, size=4)))
+        out.append(" ".join(vocab[p] for p in picks) + f" {cjk} {d * 7919}")
+    return out
+
+
+def assert_same(got, texts, host, what: str) -> None:
+    check(len(got) == len(texts), f"{what}: {len(got)} outputs for {len(texts)} texts")
+    for g, t in zip(got, texts):
+        check(list(g) == host.encode(t), f"{what}: ids differ from the host engine for {t[:60]!r}")
+
+
+def case_rotation(device, host) -> str:
+    """A stream through max_unique_rows=600: the dedup generations rotate
+    between its chunks while every chunk's wave is deferred on the card."""
+    import numpy as np
+
+    import tokenizer_tpu_torch as tt
+
+    tok = forced(tt.create_by_encoder_name(
+        "cl100k_synth", allow_fetch=False, device=device, max_unique_rows=600))
+    rng = np.random.default_rng(91)
+    hot = fresh_words(rng, 200)  # in every chunk: resurrected after a rotation
+    batches = [word_soup(rng, hot + fresh_words(rng, 600), 12, 60) for _ in range(8)]
+    flat = [ids for b in tok.encode_batch_stream(iter(batches)) for ids in b]
+    assert_same(flat, [t for b in batches for t in b], host, "rotation stream")
+    st = tok.stats
+    check(st.dedup_resets >= 2 and st.dedup_gen_copies > 0 and st.device_waves >= len(batches),
+          f"rotation stream: {st.dedup_resets} rotations, {st.dedup_gen_copies} row copies, "
+          f"{st.device_waves} device waves")
+    return f"{st.dedup_resets} rotations, {st.dedup_gen_copies} row copies, {st.device_waves} waves"
+
+
+def case_abandoned(device, host) -> str:
+    """A stream closed after its first chunk while the next chunk's wave is
+    deferred on the card; the same tokenizer then encodes a batch of that
+    chunk's pieces."""
+    import numpy as np
+
+    import tokenizer_tpu_torch as tt
+
+    tok = forced(tt.create_by_encoder_name(
+        "cl100k_synth", allow_fetch=False, device=device, max_unique_rows=600))
+    rng = np.random.default_rng(92)
+    vocabs = [fresh_words(rng, 400) for _ in range(5)]
+    batches = [word_soup(rng, v, 30, 20) for v in vocabs]
+    gen = tok.encode_batch_stream(iter(batches))
+    assert_same(next(gen), batches[0], host, "abandoned stream, chunk 0")
+    check(tok._stream_inflight == 1, f"no chunk deferred after chunk 0 ({tok._stream_inflight})")
+    gen.close()
+    check(tok._stream_inflight == 0, f"the closed stream left {tok._stream_inflight} chunks held")
+    after = word_soup(rng, vocabs[1] + fresh_words(rng, 100), 40, 20)
+    assert_same(tok.encode_batch(after), after, host, "batch after the closed stream")
+    return f"{tok.stats.device_waves} waves"
+
+
+def case_interleaved(device, host) -> str:
+    """encode_batch and encode_trim_suffix_batch between the chunks of a live
+    stream, each on pieces first seen in the chunk deferred at that moment."""
+    import numpy as np
+
+    import tokenizer_tpu_torch as tt
+
+    tok = forced(tt.create_by_encoder_name(
+        "cl100k_synth", allow_fetch=False, device=device, max_unique_rows=600))
+    rng = np.random.default_rng(93)
+    vocabs = [fresh_words(rng, 300) for _ in range(7)]
+    batches = [word_soup(rng, v, 40, 8) for v in vocabs[:6]]
+    held = 0
+    out = []
+    for k, got in enumerate(tok.encode_batch_stream(iter(batches))):
+        out.append(got)
+        held += tok._stream_inflight
+        side = word_soup(rng, vocabs[k + 1], 50, 6)  # chunk k + 1 is deferred now
+        assert_same(tok.encode_batch(side), side, host, f"batch between chunks {k} and {k + 1}")
+        for t, res in zip(side, tok.encode_trim_suffix_batch(side, 7)):
+            check((res.token_ids, res.text) == tuple(host.encode_trim_suffix(t, 7)),
+                  f"trim between chunks {k} and {k + 1} differs for {t[:60]!r}")
+    assert_same([ids for b in out for ids in b], [t for b in batches for t in b], host,
+                "interleaved stream")
+    check(held == len(batches) - 1, f"{held} of {len(batches)} yields had a chunk deferred")
+    check(tok._stream_inflight == 0, "the stream left a chunk held")
+    return f"{held} yields with a chunk deferred, {tok.stats.device_waves} waves"
+
+
+def case_flip(device, host) -> str:
+    """Chunks deferred on the card, each followed by a host-routed emit chunk
+    that repeats its pieces (the router set as the JAX tests set it)."""
+    import numpy as np
+
+    import tokenizer_tpu_torch as tt
+
+    tok = tt.create_by_encoder_name("cl100k_synth", allow_fetch=False, device=device, mesh=None)
+    tok._dev_pp, tok._host_pp, tok._news_per_byte = 1e-12, 1.0, 1.0
+    rng = np.random.default_rng(94)
+    batches = []
+    for _ in range(3):
+        words = fresh_words(rng, 1400)
+        batches.append([" ".join(words)])
+        batches.append([" ".join(words[:40]) + " fresh bits"])
+    got = [ids for b in tok.encode_batch_stream(iter(batches)) for ids in b]
+    assert_same(got, [b[0] for b in batches], host, "flip stream")
+    st = tok.stats
+    check(st.device_waves >= 3 and st.fused_pieces > 0,
+          f"flip stream: device_waves {st.device_waves}, fused_pieces {st.fused_pieces}")
+    return f"{st.device_waves} device waves, {st.fused_pieces} pieces fused on the host"
+
+
+def case_threads(device, host) -> str:
+    """Four threads encoding, trimming, decoding and streaming on one
+    tokenizer (max_unique_rows=600), drawing on one vocabulary."""
+    import random
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    import tokenizer_tpu_torch as tt
+
+    tok = forced(tt.create_by_encoder_name(
+        "cl100k_synth", allow_fetch=False, device=device, max_unique_rows=600, mesh=None))
+    vocab = fresh_words(np.random.default_rng(95), 3000)
+
+    def work(seed):
+        r = random.Random(seed)
+        rng = np.random.default_rng(seed)
+        for _ in range(6):
+            docs = word_soup(rng, vocab, r.randint(2, 12), r.randint(5, 60))
+            got = tok.encode_batch(docs)
+            assert_same(got, docs, host, f"thread {seed} batch")
+            check(tok.decode_batch(got) == docs, f"thread {seed}: decode_batch differs")
+            for t, res in zip(docs, tok.encode_trim_suffix_batch(docs, 5)):
+                check((res.token_ids, res.text) == tuple(host.encode_trim_suffix(t, 5)),
+                      f"thread {seed}: trim differs for {t[:60]!r}")
+            more = word_soup(rng, vocab, 6, 40)
+            flat = [ids for b in tok.encode_batch_stream([more[:3], more[3:]]) for ids in b]
+            assert_same(flat, more, host, f"thread {seed} stream")
+        return True
+
+    with ThreadPoolExecutor(max_workers=4) as ex:
+        check(all(ex.map(work, range(4))), "a thread failed")
+    return f"{tok.stats.device_waves} waves, {tok.stats.dedup_resets} rotations"
+
+
+#: phase 9 (c): the cases with waves in flight, cl100k_synth, every wave forced.
+IN_FLIGHT = {
+    "rotation": case_rotation,
+    "abandoned": case_abandoned,
+    "interleaved": case_interleaved,
+    "flip": case_flip,
+    "threads": case_threads,
+}
+
+#: phase 9 (a): each vocabulary the port serves offline, its lib.rs.txt golden.
+GOLDENS = {
+    "gpt2": "tokens_gpt2.json",
+    "r50k_base": "tokens_r50k_base.json",
+    "p50k_base": "tokens_p50k_base.json",
+    "p50k_edit": "tokens_p50k_edit.json",
+    "cl100k_synth": "tokens_cl100k_synth.json",
+    "o200k_synth": "tokens_o200k_synth.json",
+}
+
+
+def parity_phase(toks: dict, docs: list, nbytes: int, seed_text: str, device, smi: str) -> dict:
+    """Phase 9, parity on the card; returns its launches and the o200k_synth
+    stream's MB/s."""
+    import numpy as np
+    import torch
+
+    import tokenizer_tpu_torch as tt
+    from tokenizer_tpu_torch.ops import merge_cuda
+
+    merge_cuda.LAUNCHES = merge_cuda.V1_LAUNCHES = 0
+    # (a) the goldens, every wave forced.
+    for name, golden in GOLDENS.items():
+        if name not in toks:
+            toks[name] = tt.create_by_encoder_name(name, allow_fetch=False, device=device)
+        tok = forced(toks[name])
+        tok._reset_dedup_full()
+        before = merge_cuda.LAUNCHES
+        (ids,) = tok.encode_batch([seed_text])
+        torch.cuda.synchronize()
+        want = json.loads((ROOT / "tests" / "testdata" / golden).read_text())
+        check(list(ids) == want, f"phase 9 (a) {name}: {len(ids)} ids differ from {golden}")
+        check(tok.decode(ids) == seed_text, f"phase 9 (a) {name}: decode does not round-trip")
+        check(merge_cuda.LAUNCHES > before, f"phase 9 (a) {name}: no launch")
+        print(f"phase 9 (a) {name} lib.rs.txt == {golden} ({len(ids)} ids), decode round-trips; "
+              f"launches {merge_cuda.LAUNCHES - before}", flush=True)
+
+    # (b) o200k_synth end to end: phase 5's cold corpus, forced.
+    tok = toks["o200k_synth"]
+    tok._reset_dedup_full()
+    st0 = tok.stats.as_dict()
+    chunks = [docs[i : i + CHUNK_DOCS] for i in range(0, len(docs), CHUNK_DOCS)]
+    before = merge_cuda.LAUNCHES
+    t0 = time.perf_counter()
+    out = [ids for batch in tok.encode_batch_stream(chunks) for ids in batch]
+    torch.cuda.synchronize()
+    stream_s = time.perf_counter() - t0
+    launches_b = merge_cuda.LAUNCHES - before
+    st = {k: v - st0[k] for k, v in tok.stats.as_dict().items()}
+    ref = host_reference("o200k_synth")
+    t0 = time.perf_counter()
+    want = ref.encode_batch(docs)
+    ref_s = time.perf_counter() - t0
+    check(ref.stats.device_pieces == 0, "the o200k_synth reference used a device")
+    check(len(out) == len(docs), f"o200k_synth stream gave {len(out)} outputs for {len(docs)} docs")
+    bad = [i for i, (g, w) in enumerate(zip(out, want)) if not np.array_equal(g, w)]
+    check(not bad, f"phase 9 (b) o200k_synth: {len(bad)} documents differ, first {bad[:5]}")
+    check(launches_b > 0 and st["device_pieces"] > 0 and st["host_wave_pieces"] == 0,
+          f"phase 9 (b): launches {launches_b}, device_pieces {st['device_pieces']}, "
+          f"host_wave_pieces {st['host_wave_pieces']}")
+    print(f"phase 9 (b) o200k_synth forced encode_batch_stream == host reference on {len(docs)} "
+          f"docs, {nbytes} bytes, {sum(len(w) for w in want)} tokens; {nbytes / stream_s / 1e6:.3f} "
+          f"MB/s ({stream_s:.3f} s; host-routed reference {nbytes / ref_s / 1e6:.3f} MB/s); "
+          f"device_waves {st['device_waves']}, device_pieces {st['device_pieces']}, unique_pieces "
+          f"{st['unique_pieces']}, host_fallback_pieces {st['host_fallback_pieces']}, "
+          f"device_blocking_s {st['device_blocking_s']:.4f}; launches {launches_b}; card {smi}",
+          flush=True)
+
+    # (c) waves in flight, each case against the host engine.
+    host = tt.create_by_encoder_name("cl100k_synth", allow_fetch=False, device=None)
+    for name, case in IN_FLIGHT.items():
+        before = merge_cuda.LAUNCHES
+        t0 = time.perf_counter()
+        what = case(device, host)
+        torch.cuda.synchronize()
+        check(merge_cuda.LAUNCHES > before, f"phase 9 (c) {name}: no launch")
+        print(f"phase 9 (c) {name} == host engine: {what}; launches {merge_cuda.LAUNCHES - before} "
+              f"({time.perf_counter() - t0:.2f} s)", flush=True)
+    check(merge_cuda.V1_LAUNCHES == 0, "phase 9 launched the first merge kernel")
+    return {"launches": merge_cuda.LAUNCHES, "o200k_MBps": nbytes / stream_s / 1e6,
+            "o200k_ref_MBps": nbytes / ref_s / 1e6}
 
 
 def smi_line() -> str:
@@ -754,6 +1020,7 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
+    t_start = time.perf_counter()
     check((ROOT / "tokenizer_tpu_torch").is_dir(), f"no tokenizer_tpu_torch beside {__file__}")
     import numpy as np
     import torch
@@ -805,9 +1072,7 @@ def main() -> int:
 
     # -- 4. main path, gpt2 golden -----------------------------------------
     merge_cuda.LAUNCHES = merge_cuda.V1_LAUNCHES = 0
-    gpt2 = tt.create_by_encoder_name("gpt2", allow_fetch=False, device=device)
-    gpt2._host_pp = float("inf")  # force every wave onto the card
-    gpt2._host_wave_max = 0
+    gpt2 = forced(tt.create_by_encoder_name("gpt2", allow_fetch=False, device=device))
     golden = json.loads((ROOT / "tests" / "testdata" / "tokens_gpt2.json").read_text())
     (ids,) = gpt2.encode_batch([seed_text])
     torch.cuda.synchronize()
@@ -821,9 +1086,7 @@ def main() -> int:
     # -- 5. main path, cl100k_synth cold stream -----------------------------
     docs = gen_corpus(CORPUS_MB, args.seed, seed_text)
     nbytes = sum(len(d.encode("utf-8")) for d in docs)
-    tok = tt.create_by_encoder_name("cl100k_synth", allow_fetch=False, device=device)
-    tok._host_pp = float("inf")
-    tok._host_wave_max = 0
+    tok = forced(tt.create_by_encoder_name("cl100k_synth", allow_fetch=False, device=device))
     tok._ensure_device()  # table upload outside the timed region
     chunks = [docs[i : i + CHUNK_DOCS] for i in range(0, len(docs), CHUNK_DOCS)]
     before = merge_cuda.LAUNCHES
@@ -937,6 +1200,11 @@ def main() -> int:
     t8 = time.perf_counter()
     mesh = mesh_phase(docs, want, nbytes, smi)
     print(f"phase 8 {time.perf_counter() - t8:.2f} s", flush=True)
+
+    # -- 9. parity on the card ---------------------------------------------------
+    t9 = time.perf_counter()
+    parity = parity_phase(toks, docs, nbytes, seed_text, device, smi)
+    print(f"phase 9 {time.perf_counter() - t9:.2f} s; card {smi}", flush=True)
     leaked = sorted(m for m in sys.modules
                     if m in ("jax", "bench", "tokenizer_tpu") or m.startswith("tokenizer_tpu."))
     check(not leaked, f"imported {leaked}")
@@ -948,11 +1216,12 @@ def main() -> int:
         "source": KERNEL_SOURCE,
         "replaces": REPLACES,
         "also_replaces": ALSO_REPLACES,
-        "launches": launches + corpus["launches"] + mesh["launches"],
+        "launches": launches + corpus["launches"] + mesh["launches"] + parity["launches"],
         "launches_by_path": {
             "encode_batch + encode_batch_stream (phases 4-5)": launches,
             "encode_corpus (phase 7a)": corpus["launches"],
             "mesh (phase 8)": mesh["launches"],
+            "parity (phase 9)": parity["launches"],
         },
         "max_abs_err": max(r["max_abs_err"] for r in k_res.values()),
         # one [L, 8192] tile of each bucket, cl100k_synth table, summed;
@@ -970,6 +1239,8 @@ def main() -> int:
         "corpus_MBps": corpus["MBps"],
         "corpus_host_reference_MBps": corpus["ref_MBps"],
         "mesh_stream_MBps": mesh["MBps"],
+        "o200k_synth_stream_MBps": parity["o200k_MBps"],
+        "o200k_synth_host_reference_MBps": parity["o200k_ref_MBps"],
         "mesh_shards": mesh["shards"],
     }
     probes = []
@@ -1031,6 +1302,7 @@ def main() -> int:
                     name: {k: r["lookup_pairs"]["device_us"] for k, r in t.items()}
                     for name, t in per.items()},
             })
+    print(f"chip_smoke passed every phase in {time.perf_counter() - t_start:.2f} s", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": [kernel, *probes]}), flush=True)
     print(json.dumps({"ok": True, "device": {

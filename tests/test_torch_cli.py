@@ -65,7 +65,8 @@ def test_bench_reports_like_the_jax_cli(capsys):
     assert {k: v for k, v in got.items() if k not in TIMED} == {
         k: v for k, v in want.items() if k not in TIMED
     }
-    assert got["files"] == 7 and got["tokens"] > 11378 and got["n_cycles"] >= 1
+    # lib.rs.txt and the eight tokens_*.json goldens
+    assert got["files"] == 9 and got["tokens"] > 11378 and got["n_cycles"] >= 1
 
 
 def _npz(out: Path) -> dict:

@@ -8,6 +8,8 @@ same device; int32 throughout, so the tolerance is zero.
 """
 
 import json
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -21,6 +23,10 @@ from tokenizer_tpu_torch.ops import merge_cuda
 from tokenizer_tpu_torch.ops.merge_torch import device_table, merge_packed_torch
 
 pytestmark = pytest.mark.cuda
+
+REPO = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(REPO))
+import chip_smoke  # noqa: E402  (phase 9's in-flight cases)
 
 
 @pytest.fixture(scope="module")
@@ -637,3 +643,57 @@ def test_mesh_tokenizer_on_two_shards_of_one_card(cuda, lib_rs_text):
     shard_streams = {s.cuda_stream for s in tok._streams}
     assert len(shard_streams) == 2
     assert {stream for _, stream in merge_cuda.STREAM_LAUNCHES} == shard_streams
+
+
+# -- parity on the card: tiktoken, and waves in flight --------------------------
+
+
+@pytest.mark.parametrize("name", ["cl100k_synth", "o200k_synth"])
+def test_synth_parity_on_card_vs_tiktoken(cuda, name, lib_rs_text):
+    """A forced card tokenizer against Rust tiktoken built from the same ranks
+    (tools/synth_goldens.py): encode_batch and a cold encode_batch_stream of
+    gen_corpus(0.5, seed=31337) plus tests/test_torch_synth.py's micro corpus,
+    specials with allowed_special="all", and the committed lib.rs.txt golden."""
+    pytest.importorskip("tiktoken")
+    sys.path.insert(0, str(REPO / "tools"))
+    import synth_goldens
+    from bench import gen_corpus
+    from test_torch_synth import CORPUS
+
+    rust = synth_goldens.rust_encoding(name)
+    tok = _forced_card(name)
+    docs = gen_corpus(0.5, seed=31337) + CORPUS
+    before = merge_cuda.LAUNCHES
+    out = tok.encode_batch(docs)
+    for d, ids in zip(docs, out):
+        assert list(ids) == rust.encode(d, disallowed_special=()), repr(d[:80])
+    tok._reset_dedup_full()
+    chunks = [docs[i : i + 40] for i in range(0, len(docs), 40)]
+    flat = [ids for batch in tok.encode_batch_stream(chunks) for ids in batch]
+    assert len(flat) == len(docs)
+    for d, ids in zip(docs, flat):
+        assert list(ids) == rust.encode(d, disallowed_special=()), repr(d[:80])
+    texts = ["a<|endoftext|>b", "plain <|endofprompt|>", "<|endoftext|><|endoftext|>"]
+    if name == "cl100k_synth":
+        texts.append("<|fim_prefix|>head<|fim_suffix|>tail<|fim_middle|>mid")
+    for t, ids in zip(texts, tok.encode_batch(texts, allowed_special="all")):
+        assert list(ids) == rust.encode(t, allowed_special="all"), repr(t)
+    tok._reset_dedup_full()
+    (ids,) = tok.encode_batch([lib_rs_text])
+    assert list(ids) == json.loads(find_testdata(f"tokens_{name}.json").read_text())
+    torch.cuda.synchronize()
+    assert merge_cuda.LAUNCHES > before and tok.stats.host_wave_pieces == 0
+
+
+@pytest.mark.parametrize("case", list(chip_smoke.IN_FLIGHT))
+def test_parity_in_flight_on_card(cuda, case):
+    """chip_smoke.py phase 9 (c) on the card: each case's waves really are in
+    flight while the host scans on, and its ids equal the host engine's."""
+    import tokenizer_tpu_torch as tt
+
+    require_vocab("cl100k_synth")
+    host = tt.create_by_encoder_name("cl100k_synth", allow_fetch=False, device=None)
+    before = merge_cuda.LAUNCHES
+    assert chip_smoke.IN_FLIGHT[case](cuda, host)
+    torch.cuda.synchronize()
+    assert merge_cuda.LAUNCHES > before

@@ -1,7 +1,7 @@
 """Keep tools/fuzz_campaign_torch.py importable and its iteration bodies
-healthy: three iterations of each of encode, trim and mesh on the CPU
-(``--device cpu``: the plain merge, and eight ``cpu`` shards for the
-mesh), each against the port's host engine, exactly."""
+healthy: three iterations of each of encode, trim, threads and mesh on
+the CPU (``--device cpu``: the plain merge, and eight ``cpu`` shards for
+the mesh), each against the port's host engine, exactly."""
 
 from __future__ import annotations
 
@@ -16,13 +16,13 @@ from conftest import require_vocab
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tools"))
 
 
-@pytest.mark.parametrize("mode", ["encode", "trim", "mesh"])
+@pytest.mark.parametrize("mode", ["encode", "trim", "threads", "mesh"])
 def test_campaign_iterations_smoke(mode):
     for enc in ("gpt2", "cl100k_synth", "o200k_synth"):
         require_vocab(enc)
     import fuzz_campaign_torch
 
-    rng = random.Random({"encode": 1234, "trim": 1234, "mesh": 4321}[mode])
+    rng = random.Random({"encode": 1234, "trim": 1234, "threads": 1234, "mesh": 4321}[mode])
     step = fuzz_campaign_torch.STEPS[mode]
     for _ in range(3):
         step(rng, "cpu")

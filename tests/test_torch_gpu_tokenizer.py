@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from conftest import find_testdata, require_vocab
+from torch_cpu import one_torch_thread  # noqa: F401
 
 import tokenizer_tpu_torch as tt
 from tokenizer_tpu import create_by_encoder_name as create_jax
@@ -71,7 +72,15 @@ def _assert_match(tok, host, texts, allowed=None):
 
 @pytest.mark.parametrize(
     "encoding,golden,count",
-    [("gpt2", "tokens_gpt2.json", 11378), ("p50k_base", "tokens_p50k_base.json", 7230)],
+    [
+        ("gpt2", "tokens_gpt2.json", 11378),
+        ("r50k_base", "tokens_r50k_base.json", 11378),
+        ("p50k_base", "tokens_p50k_base.json", 7230),
+        ("p50k_edit", "tokens_p50k_edit.json", 7230),
+        # tiktoken's ids from the same ranks (tools/synth_goldens.py)
+        ("cl100k_synth", "tokens_cl100k_synth.json", 5362),
+        ("o200k_synth", "tokens_o200k_synth.json", 5400),
+    ],
 )
 def test_lib_rs_golden(encoding, golden, count, lib_rs_text, plain_calls):
     tok = _port(encoding)
@@ -273,3 +282,17 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build._nvcc()
+
+
+sys.path.insert(0, str(REPO))
+import chip_smoke  # noqa: E402
+
+
+@pytest.mark.parametrize("case", list(chip_smoke.IN_FLIGHT))
+def test_chip_smoke_in_flight_cases_on_cpu(case):
+    """chip_smoke.py phase 9 (c) on the CPU: each case with waves in flight
+    (rotation, abandoned stream, interleaved calls, route flip, four threads)
+    through the plain merge, against the port's host engine."""
+    require_vocab("cl100k_synth")
+    host = tt.create_by_encoder_name("cl100k_synth", allow_fetch=False, device=None)
+    assert chip_smoke.IN_FLIGHT[case]("cpu", host)

@@ -35,6 +35,7 @@ PORT_FILES = sorted(
         REPO / "tools" / "onehot_ab.py",
         REPO / "tools" / "ab_turns.py",
         REPO / "tools" / "rows_ab.py",
+        REPO / "tools" / "synth_goldens.py",
     )
 )
 
@@ -88,6 +89,7 @@ def test_port_files_cover_the_host_layers():
         "tools/onehot_ab.py",
         "tools/ab_turns.py",
         "tools/rows_ab.py",
+        "tools/synth_goldens.py",
     ):
         assert rel in PORT_FILES
 
@@ -105,6 +107,19 @@ def test_pair_table_equals_the_jax_package(name):
     for k in ("slot_bits", "max_probes", "n_vocab", "max_token_len", "n_pairs",
               "unreachable_tokens"):
         assert getattr(ours, k) == getattr(ref, k), k
+
+
+@pytest.mark.parametrize("name", ["cl100k_synth", "o200k_synth"])
+def test_synth_goldens_equal_tiktoken(name):
+    """The committed synth goldens are tiktoken's ids of lib.rs.txt from the
+    vendored ranks, byte for byte as ``tools/synth_goldens.py`` writes them:
+    a changed vocab file shows up here as a diff."""
+    pytest.importorskip("tiktoken")
+    require_vocab(name)
+    sys.path.insert(0, str(REPO / "tools"))
+    import synth_goldens
+
+    assert synth_goldens.golden_bytes(name) == synth_goldens.golden_path(name).read_bytes()
 
 
 def test_vendored_gpt2_rank_file_is_the_jax_package_s():

@@ -377,6 +377,14 @@ class GpuTokenizer(TikTokenizer):
         #: not orphan them.  Rotation is a cache bound, so deferring it
         #: to the stream's own safe point is always sound.
         self._stream_inflight = 0
+        #: one callable per live encode_batch_stream that resolves its
+        #: deferred chunk now.  A chunk's first-seen pieces are interned
+        #: at its scan but publish their rows only when its wave
+        #: resolves, so any other scan before then that meets one of
+        #: them holds a piece it can neither merge nor fill in.  Every
+        #: other entry point therefore drains the live streams first
+        #: (:meth:`_drain_streams`).
+        self._stream_drains: list = []
         #: EMA of BLOCKING host seconds per piece for each route (device
         #: = pack+h2d+dispatch+d2h+row writes; overlap-hidden exec time
         #: excluded).  Seeds: C++ heap merge ~1e-6 s/piece; device unset
@@ -1629,6 +1637,14 @@ class GpuTokenizer(TikTokenizer):
                 "string; wrap it in a list"
             )
 
+    def _drain_streams(self, keep=None) -> None:
+        """Resolve the deferred chunk of every live stream but ``keep``'s,
+        so that each piece interned so far has its row; the streams yield
+        those chunks' outputs in order later.  Call under the API lock."""
+        for drain in list(self._stream_drains):
+            if drain is not keep:
+                drain()
+
     @_serialized
     def encode_batch(
         self,
@@ -1643,6 +1659,7 @@ class GpuTokenizer(TikTokenizer):
         """
         self._require_text_sequence(texts, "encode_batch")
         allowed = self._resolve_allowed(allowed_special)
+        self._drain_streams()
         self._maybe_reset_dedup()  # safe: nothing in flight
         if self._native is not None and self._native_pid is not None:
             out = self._native_encode_emit(texts, allowed)
@@ -1719,6 +1736,9 @@ class GpuTokenizer(TikTokenizer):
         #: numpy objects ATOMICALLY after copying the resolved prefix,
         #: so the assemble thread reads a complete view either way.
         deferred = None
+        #: outputs of chunks that another call resolved early (drain),
+        #: yielded before anything later.
+        ready: list = []
         pool = ThreadPoolExecutor(max_workers=1)
 
         def guard(sample: bool):
@@ -1784,6 +1804,10 @@ class GpuTokenizer(TikTokenizer):
             self._stream_inflight -= 1
             return out
 
+        def drain():
+            if deferred is not None:
+                ready.append(resolve_tracked())
+
         def step(texts):
             """Process ONE chunk and return its ready outputs in order.
 
@@ -1792,9 +1816,12 @@ class GpuTokenizer(TikTokenizer):
             the lock across a yield — a consumer may interleave other
             bulk calls on this tokenizer (any thread) between yields;
             the _stream_inflight hold keeps those calls from rotating
-            the dedup out from under a deferred chunk."""
-            outs = []
+            the dedup out from under a deferred chunk, and they drain it
+            before they scan (_drain_streams)."""
             self._require_text_sequence(texts, "encode_batch_stream")
+            self._drain_streams(keep=drain)
+            outs = ready[:]
+            ready.clear()
             if (
                 deferred is not None
                 and self._n_rows > self._gen_rows_bound()
@@ -1867,6 +1894,8 @@ class GpuTokenizer(TikTokenizer):
                 set_deferred(("dev", state, handle, guard(sample=False)))
             return outs
 
+        with self._api_lock:
+            self._stream_drains.append(drain)
         try:
             for texts in batches:
                 with self._api_lock:
@@ -1874,10 +1903,14 @@ class GpuTokenizer(TikTokenizer):
                 for o in outs:
                     yield o
             with self._api_lock:
-                outs = [resolve_tracked()] if deferred is not None else []
+                drain()
+                outs = ready[:]
+                ready.clear()
             for o in outs:
                 yield o
         finally:
+            with self._api_lock:
+                self._stream_drains.remove(drain)
             if deferred is not None:
                 # Generator closed with a chunk in flight: finish the
                 # wave so uid publication/backfill stay consistent
@@ -1998,6 +2031,7 @@ class GpuTokenizer(TikTokenizer):
         materializes the document's full id stream (VERDICT r3 weak #6 /
         next #5; reference semantics anchor TikTokenizer.cs:289-342).
         """
+        self._drain_streams()
         self._maybe_reset_dedup()  # safe: nothing in flight
         state = self._native_split_phase(texts, allowed)
         self._finish_new_piece_rows(self._dispatch_wave(state[4]))
@@ -2546,6 +2580,7 @@ class GpuTokenizer(TikTokenizer):
             # loop below, and outputs are bit-identical (enforced by
             # tests/test_tpu_pipeline.py).  The threshold keeps tiny
             # interactive encodes on the zero-setup low-latency path.
+            self._drain_streams()
             self._maybe_reset_dedup()
             allowed = self._resolve_allowed(allowed_special)
             out = self._native_encode_emit([text], allowed)
