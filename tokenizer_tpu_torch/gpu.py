@@ -557,15 +557,17 @@ class GpuTokenizer(TikTokenizer):
             np.fromiter(row_ids, np.int64, count=n), out, offs, counts
         )
 
-    def _host_wave_resolve_spans(self, buf, starts, ends, rows_arr) -> None:
+    def _host_wave_resolve_spans(
+        self, buf, starts, ends, rows_arr, whole_ids=None
+    ) -> None:
         """Span-wave host resolve: no per-piece bytes objects at all.
 
-        Skipping the whole-piece dict probe is exact here: unreachable
-        tokens were filtered to the oracle during registration, and the
-        merge of any REACHABLE vocab token reproduces its id (the same
-        argument the device path rests on)."""
+        Without ``whole_ids`` the whole-piece dict probe is skipped, which
+        is exact here: unreachable tokens were filtered to the oracle
+        during registration, and the merge of any REACHABLE vocab token
+        reproduces its id (the same argument the device path rests on)."""
         out, offs, counts = self._native.bpe_encode_batch_spans(
-            buf, starts, ends, self.table
+            buf, starts, ends, self.table, whole_ids=whole_ids
         )
         self._scatter_wave_rows(rows_arr.astype(np.int64), out, offs, counts)
 
@@ -939,6 +941,19 @@ class GpuTokenizer(TikTokenizer):
             uids,
         ) = handle
         t_finish0 = time.perf_counter()
+        h = plan.host_idx
+        if h.size:
+            # Pieces over the widest bucket: one batched native merge while
+            # the wave's copies are in flight (its rows publish only below),
+            # the whole-piece hit first as in _oracle_piece.
+            hs, he = starts[h], ends[h]
+            whole = np.fromiter(
+                (self.encoder.get(buf[s:e], -1) for s, e in zip(hs.tolist(), he.tolist())),
+                np.int32,
+                count=h.size,
+            )
+            self._host_wave_resolve_spans(buf, hs, he, rows_arr[h], whole)
+            self.stats.host_fallback_pieces += int(h.size)
         bucket_out = self._bucket_out(plan.batches, wave)
         dst_all = rows_arr.astype(np.int64)
         if plan.direct_idx.size:
@@ -968,10 +983,6 @@ class GpuTokenizer(TikTokenizer):
                     self._spill_overflow(
                         int(dst[t]), out_rows[t, : int(k[t])]
                     )
-        for i in plan.host_idx:  # oversized pieces: rare, counted
-            pb = buf[int(starts[i]) : int(ends[i])]
-            self._store_row(int(rows_arr[i]), self._oracle_piece(pb))
-            self.stats.host_fallback_pieces += 1
         if uids is not None:
             # Every wave row is now complete: publish uid -> row + ids.
             self._publish_uids(uids, rows_arr)
