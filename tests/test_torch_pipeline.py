@@ -9,6 +9,7 @@ digest sidecar must be equal, exactly.
 """
 
 import json
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -215,3 +216,125 @@ def test_iter_corpus_files_matches_and_fails_loud(tmp_path):
     docs = list(vanish_mid_walk(on_skip=lambda p, e: skipped.append(str(p))))
     assert docs == ["alpha", "gamma", "beta ⭐\nline"]
     assert skipped == [str(gone)]
+
+
+REPO = Path(__file__).resolve().parent.parent
+
+
+def _tree_nested(root):
+    for rel, text in (("z.txt", "zed"), ("a/y.txt", "why"), ("a/b/c/x.txt", "deep"),
+                      ("a/b/w.txt", "double-u"), ("m/n/o.txt", "oh")):
+        (root / rel).parent.mkdir(parents=True, exist_ok=True)
+        (root / rel).write_text(text)
+    return [str(root)], None
+
+
+def _tree_parts_order(root):
+    # as parts a < a b < a-b < a.b < a0; as strings "a-b/x" < "a.b/x" < "a/x"
+    for rel in ("a/x", "a-b/x", "a.b/x", "a0", "a/x0/y", "a b/x"):
+        (root / rel).parent.mkdir(parents=True, exist_ok=True)
+        (root / rel).write_text(rel)
+    return [str(root)], ["a/x", "a/x0/y", "a b/x", "a-b/x", "a.b/x", "a0"]
+
+
+def _tree_dots(root):
+    (root / ".dir").mkdir()
+    (root / ".dir" / "in.txt").write_text("in a dot-directory")
+    (root / ".hidden").write_text("a dotfile")
+    (root / "plain.txt").write_text("plain")
+    return [str(root)], ["in a dot-directory", "a dotfile", "plain"]
+
+
+def _tree_symlinks(root):
+    (root / "real").mkdir()
+    (root / "real" / "f.txt").write_text("target")
+    (root / "outside").mkdir()
+    (root / "outside" / "g.txt").write_text("behind a linked directory")
+    corpus = root / "corpus"
+    corpus.mkdir()
+    (corpus / "own.txt").write_text("own")
+    (corpus / "file_link").symlink_to(root / "real" / "f.txt")
+    (corpus / "dir_link").symlink_to(root / "outside", target_is_directory=True)
+    (corpus / "dangling").symlink_to(root / "missing.txt")
+    return [str(corpus)], ["target", "own"]
+
+
+def _tree_bytes(root):
+    big = b"x" * 65535 + "é".encode() + b"\r\n" * 300_000 + b"\xe2\x82" + "⭐".encode() * 200_000
+    for name, data in (
+        ("empty", b""),
+        ("crlf", b"one\r\ntwo\r\n"),
+        ("lone_cr", b"one\rtwo\r\r\nthree\r"),
+        ("invalid", b"ok \xff\xfe bad \xed\xa0\x80 surrogate \xc3"),
+        ("truncated", b"euro \xe2\x82"),
+        ("bom", b"\xef\xbb\xbfbom then text\r\n"),
+        ("bom_twice", b"\xef\xbb\xbf\xef\xbb\xbftwo"),
+        ("big", big + b"\r"),
+    ):
+        (root / name).write_bytes(data)
+    assert (root / "big").stat().st_size > 1 << 20  # several reads a file
+    return [str(root)], None
+
+
+def _tree_file_given(root):
+    (root / "doc.txt").write_bytes(b"given \r\n directly")
+    return [str(root / "doc.txt")], ["given \n directly"]
+
+
+def _tree_several(root):
+    for sub in ("one", "two"):
+        (root / sub / "d").mkdir(parents=True)
+        (root / sub / "d" / "x.txt").write_text(f"{sub} x")
+        (root / sub / "y.txt").write_text(f"{sub} y")
+    (root / "lone.txt").write_text("lone")
+    paths = [str(root / "two"), str(root / "lone.txt"), str(root / "one") + "/"]
+    return paths, ["two x", "two y", "lone", "one x", "one y"]
+
+
+def _tree_corpus(root):
+    """A 0.25 MB corpus, generated and written as bench_torch.corpus_cell
+    writes the benchmark's (the bench computes its reference ids from
+    documents read by this function, so only this case guards the read)."""
+    sys.path.insert(0, str(REPO))
+    from bench_torch import seed_text
+    from chip_smoke import gen_corpus
+
+    docs = gen_corpus(0.25, 0, seed_text())
+    (root / "corpus").mkdir()
+    for i, doc in enumerate(docs):
+        (root / "corpus" / f"doc{i:06d}.txt").write_text(doc, encoding="utf-8")
+    return [str(root / "corpus")], docs
+
+
+@pytest.mark.parametrize("tree", [
+    _tree_nested, _tree_parts_order, _tree_dots, _tree_symlinks, _tree_bytes,
+    _tree_file_given, _tree_several, _tree_corpus,
+], ids=lambda f: f.__name__[len("_tree_"):])
+def test_iter_corpus_files_reads_as_the_jax_pipeline(tmp_path, tree):
+    """The port's stat-free walk and raw read give the JAX function's
+    documents in its order: parts order, dot names, symlinks, newlines,
+    invalid UTF-8, a BOM, a file over several reads, several paths."""
+    paths, want = tree(tmp_path)
+    got = list(pipeline.iter_corpus_files(paths))
+    assert got == list(jax_pipeline.iter_corpus_files(paths))
+    if want is not None:
+        assert got == want
+
+
+def test_corpus_read_tool_records_every_variant(tmp_path):
+    sys.path.insert(0, str(REPO / "tools"))
+    import corpus_read
+
+    out = tmp_path / "corpus_read.json"
+    assert corpus_read.main(["--mb", "0.1", "--rounds", "2", "--dir", str(tmp_path / "w"),
+                             "--out", str(out)]) == 0
+    rec = json.loads(out.read_text())
+    names = ["walk_rglob", "walk_scandir", "read_text", "read_raw", "read_raw_t2",
+             "read_raw_t4", "read_raw_t8", "one_file"]
+    assert list(rec["variants"]) == names
+    for v in rec["variants"].values():
+        assert len(v["seconds"]) == 2 and v["median_s"] > 0 and v["us_per_file"] > 0
+    assert rec["files"] == len(list((tmp_path / "w" / "corpus").iterdir())) > 10
+    assert rec["bytes"] == (tmp_path / "w" / "one.txt").stat().st_size >= 100_000
+    assert rec["fs_type"] and rec["cores"] >= 1 and rec["rounds"] == 2
+    assert set(rec["walk_plus_read_s"]) == {"jax", "port"} and rec["port_over_jax"] > 0

@@ -30,6 +30,7 @@ PORT_FILES = sorted(
         REPO / "bench_torch.py",
         REPO / "tools" / "bench_spread.py",
         REPO / "tools" / "bench_turns.py",
+        REPO / "tools" / "corpus_read.py",
         REPO / "tools" / "bench_entries.py",
         REPO / "tools" / "scan_threads.py",
         REPO / "tools" / "overlap_ab.py",

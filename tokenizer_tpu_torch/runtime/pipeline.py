@@ -36,11 +36,76 @@ import numpy as np
 
 __all__ = ["ShardProgress", "encode_corpus", "iter_corpus_files"]
 
+#: bytes asked of each ``os.read``; a file is read until one returns none.
+_READ_BYTES = 1 << 20
+
+
+def corpus_files(root: str) -> List[str]:
+    """The files under directory ``root``, in the order of
+    ``sorted(f for f in Path(root).rglob("*") if f.is_file())``, from one
+    ``os.scandir`` per directory and no ``stat`` for a regular file (the
+    directory entry's type says what it is).
+
+    The order is how ``Path`` objects compare, part by part: ``a/x``
+    before ``a-b/x``, though as strings it is the other way round.  As
+    ``rglob`` does, the walk skips a directory it cannot list and never
+    enters a symlink to a directory; a symlink is a file when its
+    target is one.
+    """
+    files, dirs = [], [((), root)]
+    while dirs:
+        parts, d = dirs.pop()
+        try:
+            with os.scandir(d) as it:
+                entries = list(it)
+        except OSError:
+            continue
+        for e in entries:
+            key = (*parts, e.name)
+            try:
+                is_dir = e.is_dir(follow_symlinks=False)
+            except OSError:
+                is_dir = False
+            if is_dir:
+                dirs.append((key, e.path))
+                continue
+            try:
+                is_file = e.is_file()
+            except OSError:  # rglob's own test decides: False or raise
+                is_file = Path(e.path).is_file()
+            if is_file:
+                files.append((key, e.path))
+    files.sort()
+    return [f for _, f in files]
+
+
+def read_text(path: str) -> str:
+    """The file's text as ``Path.read_text(encoding="utf-8",
+    errors="replace")`` gives it, from ``open``, ``read`` until a read
+    returns no bytes (a short read is not the end on FUSE or network
+    filesystems) and ``close``: no ``fstat``, ``ioctl`` or ``lseek``.
+    Newlines are translated as text mode does; a BOM stays."""
+    fd = os.open(path, os.O_RDONLY | os.O_CLOEXEC)
+    try:
+        chunks = []
+        while chunk := os.read(fd, _READ_BYTES):
+            chunks.append(chunk)
+    finally:
+        os.close(fd)
+    text = b"".join(chunks).decode("utf-8", "replace")
+    if "\r" in text:
+        text = text.replace("\r\n", "\n").replace("\r", "\n")
+    return text
+
 
 def iter_corpus_files(
     paths: Sequence[str], on_skip=None
 ) -> Iterator[str]:
     """Yield document texts from files/directories (utf-8, replace).
+
+    The documents and their order are the JAX package's; the walk is
+    :func:`corpus_files` and each file is read by :func:`read_text` when
+    its document is asked for.
 
     An unreadable file is NEVER skipped silently: because documents are
     assigned to shards positionally (doc k -> shard k % n_shards), a
@@ -53,22 +118,18 @@ def iter_corpus_files(
     """
     for p in paths:
         path = Path(p)
-        files = (
-            sorted(f for f in path.rglob("*") if f.is_file())
-            if path.is_dir()
-            else [path]
-        )
+        files = corpus_files(str(path)) if path.is_dir() else [str(path)]
         for f in files:
             try:
-                text = f.read_text(encoding="utf-8", errors="replace")
+                text = read_text(f)
             except OSError as e:
                 if on_skip is None:
                     raise OSError(
-                        f"unreadable corpus file {f}: {e}; skipping would"
+                        f"unreadable corpus file {Path(f)}: {e}; skipping would"
                         f" silently shift shard assignment of every later"
                         f" document (pass on_skip=... to opt in)"
                     ) from e
-                on_skip(f, e)
+                on_skip(Path(f), e)
                 continue
             yield text
 
