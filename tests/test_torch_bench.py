@@ -653,6 +653,10 @@ def test_scan_threads_tool_runs_on_cpu(monkeypatch, tmp_path):
             assert (fused > 0) == (arm == "fused") and (c["defer_off"] > 0) == (arm == "unfused")
     inserts = {p["runs"][0]["counters"]["inserts"] for arm in ("fused", "unfused") for p in cold[arm]}
     assert len(inserts) == 1  # the same first-seen pieces at every thread count, either way
+    # fresh: a new context's first and second call, at every thread count
+    fresh = rec["fresh"]
+    assert 0 < fresh["docs"] <= 16 and [p["threads"] for p in fresh["points"]] == [1, 2, 4, 8]
+    assert all(p["first_call_s"] > 0 and p["second_call_s"] > 0 for p in fresh["points"])
 
 
 def test_overlap_ab_tool_runs_on_cpu(monkeypatch, tmp_path):

@@ -17,6 +17,7 @@
 // Build: g++ -O3 -shared -fPIC presplit.cpp -o libttpresplit.so
 
 #include <stdint.h>
+#include <stdlib.h>
 #include <string.h>
 
 #include <algorithm>
@@ -917,13 +918,18 @@ enum ScanCounter {
   SC_WORKERS,      // worker threads they ran (the caller's own thread: 1)
   SC_BUSY_NS,      // the workers' busy time, summed
   SC_BUSIEST_NS,   // each call's busiest worker, summed over calls
-  // interning, under Ctx::mu (ctx_insert_locked)
-  SC_INTERN_LOCKS,    // snapshot misses that took the lock
-  SC_INSERTS,         // inserts that created a uid
-  SC_INTERN_NS,       // from before the lock is taken to after its release
-  SC_INTERN_WAIT_NS,  // waiting for the lock alone
+  // interning (ctx_insert; lock-free but for growth, see Ctx).  The
+  // names date from when every insert took Ctx::mu.
+  SC_INTERN_LOCKS,    // misses in the worker's snapshot that took the
+                      // insert path (inserts, plus pieces it then found)
+  SC_INSERTS,         // inserts that created a uid (won a slot's claim)
+  SC_INTERN_NS,       // the insert path, entry to return: probe, claim,
+                      // writes, and every wait and rebuild below
+  SC_INTERN_WAIT_NS,  // its waiting: for a claimed slot's uid, for
+                      // Ctx::mu before a growth, for another's rebuild
   SC_REBUILDS,        // snapshot rebuilds (slots or arena full)
-  SC_REBUILD_NS,      // their time, a part of SC_INTERN_NS
+  SC_REBUILD_NS,      // their time (drain included), a part of
+                      // SC_INTERN_NS
   // fused first-seen merges (fuse_new_piece): count, bytes, ns of each
   // class; the ns include a merge that then deferred, and the probe of
   // an old generation that missed
@@ -1005,23 +1011,48 @@ static void add_worker_counts(int64_t* counters,
 //
 // Concurrency model (the batch entry point scans segments on multiple
 // threads with the inner loop fully fused — scan, hash, probe):
-//   * lookups are lock-free: probe the current Snapshot (slot array +
-//     entry arrays + arena), uid published with release ordering after
-//     its hash/entry/arena bytes are written, read with acquire;
-//   * misses take a mutex, re-probe (another thread may have interned
-//     the piece or grown the table), then insert;
-//   * growth (slots / entries / arena) builds a NEW snapshot and
-//     publishes it atomically; superseded snapshots are retired, not
-//     freed, so concurrent readers of an old snapshot stay valid (they
-//     can miss a fresh entry, which just routes them through the
-//     mutex re-probe).
-// Under Zipf piece distributions inserts are vanishingly rare after
-// warm-up, so the hot path never contends.
+//   * lookups are lock-free: probe a Snapshot (slot array + arena),
+//     whose slots hold a uid, EMPTY (-1) or CLAIMED (-2); a probe that
+//     meets either of the last two reports a miss;
+//   * a miss takes the insert path (ctx_insert), also lock-free: it
+//     enters the CURRENT snapshot (Snap::inflight), probes again, and at
+//     the first EMPTY slot of the piece's run CLAIMS it by a
+//     compare-and-swap EMPTY -> CLAIMED.  The winner then takes its uid
+//     (n_ent.fetch_add, so uids stay dense: a uid is taken only after a
+//     claim succeeds), writes len and key8 (a long piece: the arena
+//     bytes, whose range it reserved from arena_len before the claim),
+//     and PUBLISHES the uid last, with release ordering.  A loser, or
+//     any inserter that meets a CLAIMED slot, spins (pause, then yield)
+//     until the uid is published and compares as usual, so a piece
+//     never gets two uids: every inserter of a piece walks the same run
+//     and slots only ever go EMPTY -> CLAIMED -> uid.  A reader that
+//     acquires a uid sees the slot's len, key8 and arena bytes whole;
+//   * Ctx::mu serializes growth alone.  An insert that would cross the
+//     load limit (half the slots) or the arena's capacity leaves its
+//     snapshot and grows it under the mutex: SEAL it (no insert enters
+//     a sealed snapshot; one that tries waits for the mutex, then
+//     retries on the new snapshot), drain Snap::inflight to zero (the
+//     inserters still writing into it finish; none of them waits on
+//     anything but another in-flight claim), copy it into a larger
+//     snapshot (the slots, the arena or both doubled), and publish
+//     that with release ordering.
+//     Superseded snapshots are retired, never freed while the context
+//     lives, so readers of an old one stay valid: they can miss a fresh
+//     entry, which just routes them through the insert path, which
+//     hands them the current snapshot for their next probes.
+// The first snapshot is large enough that a cold pass over 8 MB of
+// text grows nothing (tt_ctx_new), so the cold scan's threads meet only
+// at a slot both want, and a warm scan inserts nothing at all.
 
 namespace {
 
+constexpr int32_t SLOT_EMPTY = -1;
+constexpr int32_t SLOT_CLAIMED = -2;
+
 struct SlotRec {
-  std::atomic<int32_t> uid;  // -1 empty; published LAST (release)
+  // SLOT_EMPTY, SLOT_CLAIMED (an insert is writing the slot), or the
+  // piece's uid, published LAST (release).
+  std::atomic<int32_t> uid;
   int32_t len;
   // len <= 8: key8 holds the piece bytes INLINE (zero-padded) — the
   // probe compares it directly, touching no second cache line.  The
@@ -1045,6 +1076,8 @@ struct Snap {
   int64_t slots, mask;
   uint8_t* arena;
   int64_t arena_cap;
+  std::atomic<int64_t> inflight{0};  // inserters inside (see ctx_insert)
+  std::atomic<bool> sealed{false};   // set by a rebuild, under Ctx::mu
 };
 
 struct MemoEnt;
@@ -1058,13 +1091,14 @@ struct Ctx {
   //: retune the knob by building a fresh context.
   int64_t subseg;
   std::atomic<Snap*> snap;
-  std::mutex mu;  // guards inserts, growth, n_ent, arena_len
-  int64_t n_ent, arena_len;
+  std::mutex mu;  // guards growth (and ``retired``) alone
+  std::atomic<int64_t> n_ent;      // uids handed out
+  std::atomic<int64_t> arena_len;  // arena bytes reserved
   std::vector<Snap*> retired;
-  // Per-worker-slot short-piece memos (see MemoEnt/MemoEnt16): lazily
-  // allocated on the MAIN thread before workers spawn (calls on one Ctx
-  // are serialized by the Python layer, so no lock is needed), retained
-  // across calls so steady-state traffic hits a warm memo.
+  // Per-worker-slot short-piece memos (see MemoEnt/MemoEnt16): sized on
+  // the calling thread, each allocated by the worker that uses it (see
+  // ctx_memo_for), retained across calls so steady-state traffic hits a
+  // warm memo.
   std::vector<MemoEnt*> memos;
   std::vector<MemoEnt16*> memos16;
 
@@ -1094,7 +1128,7 @@ static Snap* make_snap(int64_t slots, int64_t arena_cap) {
   s->arena_cap = arena_cap;
   for (int64_t i = 0; i < slots; i++) {
     new (&s->slot[i]) SlotRec();
-    s->slot[i].uid.store(-1, std::memory_order_relaxed);
+    s->slot[i].uid.store(SLOT_EMPTY, std::memory_order_relaxed);
   }
   return s;
 }
@@ -1109,9 +1143,21 @@ static inline bool bytes_eq(const uint8_t* a, const uint8_t* b, int64_t n) {
   return true;
 }
 
+// Whether published slot ``rec`` holds the piece (plen, h, key8 or the
+// bytes at buf + i).
+static inline bool slot_holds(const Snap* sn, const SlotRec& rec,
+                              const uint8_t* buf, int64_t i, int64_t plen,
+                              uint64_t h, uint64_t key8) {
+  if (rec.len != (int32_t)plen) return false;
+  if (plen <= 8) return rec.key8 == key8;
+  return rec.long_.hash == (uint32_t)h &&
+         bytes_eq(sn->arena + rec.long_.off, buf + i, plen);
+}
+
 // Lock-free probe of one snapshot. Returns uid or -1 (not found / not
-// yet visible here).  *out_slot gets the empty slot index when -1.
-// ``key8`` is the padded inline key when plen <= 8 (ignored otherwise).
+// yet visible here: an EMPTY or a CLAIMED slot ends the probe).
+// *out_slot gets that slot's index when -1.  ``key8`` is the padded
+// inline key when plen <= 8 (ignored otherwise).
 static inline int32_t snap_find(const Snap* sn, const uint8_t* buf, int64_t i,
                                 int64_t plen, uint64_t h, uint64_t key8,
                                 int64_t* out_slot) {
@@ -1122,7 +1168,7 @@ static inline int32_t snap_find(const Snap* sn, const uint8_t* buf, int64_t i,
     for (;;) {
       const SlotRec& rec = sn->slot[s_];
       int32_t u = rec.uid.load(std::memory_order_acquire);
-      if (u == -1) {
+      if (u < 0) {
         *out_slot = s_;
         return -1;
       }
@@ -1133,7 +1179,7 @@ static inline int32_t snap_find(const Snap* sn, const uint8_t* buf, int64_t i,
   for (;;) {
     const SlotRec& rec = sn->slot[s_];
     int32_t u = rec.uid.load(std::memory_order_acquire);
-    if (u == -1) {
+    if (u < 0) {
       *out_slot = s_;
       return -1;
     }
@@ -1145,77 +1191,180 @@ static inline int32_t snap_find(const Snap* sn, const uint8_t* buf, int64_t i,
   }
 }
 
-// Insert under ctx->mu.  Returns the piece's uid (possibly created by a
-// racing thread), or -4 on allocation failure.  ``cnt`` (nullable) counts
-// the snapshot rebuilds.
-static int32_t ctx_insert_locked(Ctx* c, const uint8_t* buf, int64_t i,
-                                 int64_t plen, uint64_t h, uint64_t key8,
-                                 int64_t* cnt) {
-  Snap* sn = c->snap.load(std::memory_order_relaxed);
-  int64_t s_;
-  int32_t u = snap_find(sn, buf, i, plen, h, key8, &s_);
-  if (u >= 0) return u;  // raced: someone else interned it
+static inline void cpu_relax() {
+#if defined(__x86_64__) || defined(__i386__)
+  __builtin_ia32_pause();
+#elif defined(__aarch64__)
+  asm volatile("yield");
+#endif
+}
 
-  // Grow whatever is full (build a complete new snapshot).  Only long
-  // pieces occupy arena bytes (short ones live inline in their slot).
-  int64_t arena_need = plen > 8 ? plen : 0;
-  bool need_slots = 2 * (c->n_ent + 1) >= sn->slots;
-  bool need_arena = c->arena_len + arena_need > sn->arena_cap;
-  if (need_slots || need_arena) {
-    int64_t t_rebuild = cnt ? now_ns() : 0;
-    int64_t nslots = need_slots ? sn->slots << 1 : sn->slots;
-    int64_t narena = sn->arena_cap;
-    while (narena < c->arena_len + arena_need) narena <<= 1;
-    Snap* ns = make_snap(nslots, narena);
-    if (!ns) return -4;
-    memcpy(ns->arena, sn->arena, c->arena_len);
-    for (int64_t t = 0; t < sn->slots; t++) {
-      const SlotRec& r = sn->slot[t];
-      int32_t uid0 = r.uid.load(std::memory_order_relaxed);
-      if (uid0 == -1) continue;
-      // Recompute the home slot: short entries rehash from their inline
-      // key (identical to the scan loop's short_hash); long entries use
-      // the stored low-32 filter bits (mask < 2^32, so insert-time
-      // h & mask == (uint32_t)h & mask).
-      uint64_t rh = r.len <= 8 ? short_hash(r.key8, r.len)
-                               : (uint64_t)r.long_.hash;
-      int64_t d = (int64_t)(rh & (uint64_t)ns->mask);
-      while (ns->slot[d].uid.load(std::memory_order_relaxed) != -1)
-        d = (d + 1) & ns->mask;
-      ns->slot[d].len = r.len;
-      ns->slot[d].key8 = r.key8;
-      ns->slot[d].uid.store(uid0, std::memory_order_relaxed);
-    }
-    c->retired.push_back(sn);
-    // Release pairs with the scan loop's acquire of c->snap: a reader
-    // that sees the new pointer sees the fully rebuilt table.
-    c->snap.store(ns, std::memory_order_release);
-    sn = ns;
-    int32_t u2 = snap_find(sn, buf, i, plen, h, key8, &s_);
-    (void)u2;  // freshly rehashed: the piece is absent; s_ is its slot
-    if (cnt) {
-      cnt[SC_REBUILDS] += 1;
-      cnt[SC_REBUILD_NS] += now_ns() - t_rebuild;
-    }
+// Waits until a CLAIMED slot's uid is published; returns it.  The
+// claimant is inside its snapshot and waits on nothing, so this ends.
+static int32_t await_uid(const SlotRec& rec, int64_t* cnt) {
+  int64_t t0 = cnt ? now_ns() : 0;
+  int32_t u;
+  for (int spin = 0;
+       (u = rec.uid.load(std::memory_order_acquire)) == SLOT_CLAIMED;
+       spin++) {
+    if (spin < 64)
+      cpu_relax();
+    else
+      std::this_thread::yield();
   }
+  if (cnt) cnt[SC_INTERN_WAIT_NS] += now_ns() - t0;
+  return u;
+}
 
-  if (c->arena_len + arena_need > (int64_t)UINT32_MAX) return -4;
-  int32_t uid = (int32_t)c->n_ent;
-  SlotRec& rec = sn->slot[s_];
-  rec.len = (int32_t)plen;
-  if (plen <= 8) {
-    rec.key8 = key8;
-  } else {
-    rec.long_.off = (uint32_t)c->arena_len;
-    rec.long_.hash = (uint32_t)h;
-    memcpy(sn->arena + c->arena_len, buf + i, plen);
-    c->arena_len += plen;
+constexpr int32_t NEED_GROW = -3;
+
+// One insert attempt inside snapshot ``sn``, which the caller has
+// entered (see ctx_insert).  Returns the piece's uid (*fresh when this
+// call created it), NEED_GROW when ``sn`` must grow first, or -4 when
+// the arena would pass 4 GB.
+static int32_t snap_insert(Ctx* c, Snap* sn, const uint8_t* buf, int64_t i,
+                           int64_t plen, uint64_t h, uint64_t key8,
+                           bool* fresh, int64_t* cnt) {
+  const int64_t need = plen > 8 ? plen : 0;  // short pieces live inline
+  int64_t off = -1;  // this attempt's arena range [off, off + need)
+  auto give_back = [&]() {  // an unused range: returned if still last
+    int64_t end = off + need;
+    if (off >= 0)
+      c->arena_len.compare_exchange_strong(end, off,
+                                           std::memory_order_relaxed);
+  };
+  int64_t s_ = (int64_t)(h & (uint64_t)sn->mask);
+  for (;;) {
+    SlotRec& rec = sn->slot[s_];
+    int32_t u = rec.uid.load(std::memory_order_acquire);
+    if (u == SLOT_CLAIMED) u = await_uid(rec, cnt);
+    if (u == SLOT_EMPTY) {
+      if (2 * (c->n_ent.load(std::memory_order_relaxed) + 1) >= sn->slots) {
+        give_back();
+        return NEED_GROW;
+      }
+      if (need && off < 0) {
+        int64_t cur = c->arena_len.load(std::memory_order_relaxed);
+        do {
+          if (cur + need > (int64_t)UINT32_MAX) return -4;
+          if (cur + need > sn->arena_cap) return NEED_GROW;
+        } while (!c->arena_len.compare_exchange_weak(
+            cur, cur + need, std::memory_order_relaxed));
+        off = cur;
+      }
+      int32_t expect = SLOT_EMPTY;
+      if (rec.uid.compare_exchange_strong(expect, SLOT_CLAIMED,
+                                          std::memory_order_acquire)) {
+        int32_t uid =
+            (int32_t)c->n_ent.fetch_add(1, std::memory_order_relaxed);
+        rec.len = (int32_t)plen;
+        if (plen <= 8) {
+          rec.key8 = key8;
+        } else {
+          rec.long_.off = (uint32_t)off;
+          rec.long_.hash = (uint32_t)h;
+          memcpy(sn->arena + off, buf + i, (size_t)plen);
+        }
+        // Release: readers that acquire this uid see len/key8 (and, for
+        // long pieces, the arena bytes).
+        rec.uid.store(uid, std::memory_order_release);
+        *fresh = true;
+        return uid;
+      }
+      // Another insert claimed the slot first: it may be this piece.
+      u = expect == SLOT_CLAIMED ? await_uid(rec, cnt) : expect;
+    }
+    if (slot_holds(sn, rec, buf, i, plen, h, key8)) {
+      give_back();
+      return u;
+    }
+    s_ = (s_ + 1) & sn->mask;
   }
-  c->n_ent++;
-  // Release: readers that acquire this uid see len/key8 (and, for long
-  // pieces, the arena bytes).
-  rec.uid.store(uid, std::memory_order_release);
-  return uid;
+}
+
+// Grows ``sn`` (if it is still the current snapshot) under Ctx::mu: seal,
+// drain, copy into a new snapshot with room for one more entry and
+// ``need`` more arena bytes, publish.  Returns false on allocation
+// failure.
+static bool ctx_grow(Ctx* c, Snap* sn, int64_t need, int64_t* cnt) {
+  int64_t t0 = cnt ? now_ns() : 0;
+  std::lock_guard<std::mutex> lk(c->mu);
+  int64_t t_rebuild = cnt ? now_ns() : 0;
+  if (cnt) cnt[SC_INTERN_WAIT_NS] += t_rebuild - t0;
+  if (c->snap.load(std::memory_order_relaxed) != sn) return true;  // grown
+  sn->sealed.store(true, std::memory_order_seq_cst);
+  while (sn->inflight.load(std::memory_order_seq_cst) != 0) cpu_relax();
+  // Every insert into sn has published; nothing writes it again.
+  int64_t n = c->n_ent.load(std::memory_order_relaxed);
+  int64_t alen = c->arena_len.load(std::memory_order_relaxed);
+  int64_t nslots = sn->slots;
+  while (2 * (n + 1) >= nslots) nslots <<= 1;
+  int64_t narena = sn->arena_cap;
+  while (narena < alen + need) narena <<= 1;
+  Snap* ns = make_snap(nslots, narena);
+  if (!ns) {
+    sn->sealed.store(false, std::memory_order_seq_cst);
+    return false;
+  }
+  memcpy(ns->arena, sn->arena, (size_t)alen);
+  for (int64_t t = 0; t < sn->slots; t++) {
+    const SlotRec& r = sn->slot[t];
+    int32_t uid0 = r.uid.load(std::memory_order_relaxed);
+    if (uid0 == SLOT_EMPTY) continue;
+    // Recompute the home slot: short entries rehash from their inline
+    // key (identical to the scan loop's short_hash); long entries use
+    // the stored low-32 filter bits (mask < 2^32, so insert-time
+    // h & mask == (uint32_t)h & mask).
+    uint64_t rh = r.len <= 8 ? short_hash(r.key8, r.len)
+                             : (uint64_t)r.long_.hash;
+    int64_t d = (int64_t)(rh & (uint64_t)ns->mask);
+    while (ns->slot[d].uid.load(std::memory_order_relaxed) != SLOT_EMPTY)
+      d = (d + 1) & ns->mask;
+    ns->slot[d].len = r.len;
+    ns->slot[d].key8 = r.key8;
+    ns->slot[d].uid.store(uid0, std::memory_order_relaxed);
+  }
+  c->retired.push_back(sn);
+  // Release pairs with the acquire of c->snap: a reader that sees the
+  // new pointer sees the fully rebuilt table.
+  c->snap.store(ns, std::memory_order_release);
+  if (cnt) {
+    cnt[SC_REBUILDS] += 1;
+    cnt[SC_REBUILD_NS] += now_ns() - t_rebuild;
+  }
+  return true;
+}
+
+// The insert path of a piece missed in a snapshot: enter the current
+// snapshot (count in, then check the seal: with both seq_cst, either a
+// rebuild's drain sees this inserter or this inserter sees the seal),
+// insert or find the piece, leave; grow and retry when full.  Returns
+// the piece's uid (*fresh when this call created it) or -4 (allocation
+// failure, arena past 4 GB).  *snp gets the snapshot that answered.
+static int32_t ctx_insert(Ctx* c, Snap** snp, const uint8_t* buf, int64_t i,
+                          int64_t plen, uint64_t h, uint64_t key8,
+                          bool* fresh, int64_t* cnt) {
+  *fresh = false;
+  for (;;) {
+    Snap* sn = c->snap.load(std::memory_order_acquire);
+    sn->inflight.fetch_add(1, std::memory_order_seq_cst);
+    if (sn->sealed.load(std::memory_order_seq_cst)) {
+      sn->inflight.fetch_sub(1, std::memory_order_release);
+      // Sealed under the mutex, which its rebuild holds until the new
+      // snapshot is published: wait for it, then retry.
+      int64_t t0 = cnt ? now_ns() : 0;
+      { std::lock_guard<std::mutex> lk(c->mu); }
+      if (cnt) cnt[SC_INTERN_WAIT_NS] += now_ns() - t0;
+      continue;
+    }
+    int32_t u = snap_insert(c, sn, buf, i, plen, h, key8, fresh, cnt);
+    sn->inflight.fetch_sub(1, std::memory_order_release);
+    if (u != NEED_GROW) {
+      *snp = sn;
+      return u;
+    }
+    if (!ctx_grow(c, sn, plen > 8 ? plen : 0, cnt)) return -4;
+  }
 }
 
 struct NewRec {
@@ -1479,32 +1628,36 @@ static inline void load_key16(const uint8_t* s, int64_t i, int64_t n,
 Ctx::~Ctx() {
   for (Snap* s : retired) free_snap(s);
   free_snap(snap.load(std::memory_order_relaxed));
-  for (MemoEnt* m : memos) delete[] m;
-  for (MemoEnt16* m : memos16) delete[] m;
+  for (MemoEnt* m : memos) free(m);
+  for (MemoEnt16* m : memos16) free(m);
 }
 
-// Lazily allocate worker slot t's memos; MAIN THREAD ONLY (no lock —
-// per-Ctx calls are serialized above this layer).  Returns null on
-// allocation failure, which just disables the memo for that worker.
+// Room for ``n`` worker slots' memos; CALLING THREAD ONLY, before the
+// workers start (no lock — per-Ctx calls are serialized above this
+// layer), so that no worker resizes the vectors.
+static void ctx_size_memos(Ctx* c, int n) {
+  if ((int)c->memos.size() < n) c->memos.resize((size_t)n, nullptr);
+  if ((int)c->memos16.size() < n) c->memos16.resize((size_t)n, nullptr);
+}
+
+// Worker slot t's memos, allocated on first use by the worker that owns
+// slot t for the call.  calloc hands back zeroed (empty) entries whose
+// pages fault in as the scan touches them, on that worker: allocating
+// and zeroing all of them on the calling thread before the workers
+// started cost a fresh context's first call ~3 ms a worker (measured
+// on an 8-core host of an H100).  Null on allocation failure, which
+// just disables the memo for that worker.
 static MemoEnt* ctx_memo_for(Ctx* c, int t) {
-  if ((int)c->memos.size() <= t) c->memos.resize((size_t)t + 1, nullptr);
-  if (!c->memos[t]) {
-    MemoEnt* m = new (std::nothrow) MemoEnt[MEMO_SLOTS];
-    if (m) memset(m, 0, MEMO_SLOTS * sizeof(MemoEnt));
-    c->memos[t] = m;
-  }
-  return c->memos[t];
+  if (!c->memos[(size_t)t])
+    c->memos[(size_t)t] = (MemoEnt*)calloc(MEMO_SLOTS, sizeof(MemoEnt));
+  return c->memos[(size_t)t];
 }
 
 static MemoEnt16* ctx_memo16_for(Ctx* c, int t) {
-  if ((int)c->memos16.size() <= t)
-    c->memos16.resize((size_t)t + 1, nullptr);
-  if (!c->memos16[t]) {
-    MemoEnt16* m = new (std::nothrow) MemoEnt16[MEMO16_SLOTS];
-    if (m) memset(m, 0, MEMO16_SLOTS * sizeof(MemoEnt16));
-    c->memos16[t] = m;
-  }
-  return c->memos16[t];
+  if (!c->memos16[(size_t)t])
+    c->memos16[(size_t)t] =
+        (MemoEnt16*)calloc(MEMO16_SLOTS, sizeof(MemoEnt16));
+  return c->memos16[(size_t)t];
 }
 
 // Fused scan+hash+intern of one segment, SOFTWARE-PIPELINED: pieces are
@@ -1551,8 +1704,9 @@ static int64_t scan_segment(Ctx* c, next_fn next, const uint8_t* buf,
   const int64_t cap_ids = b - a;
   int64_t i = a;
   // A stale snapshot is safe: it can only MISS fresh entries, which
-  // routes those pieces through the mutex re-probe of the current
-  // snapshot; retired snapshots stay allocated, never freed.
+  // routes those pieces through the insert path, which probes the
+  // current snapshot and hands it back here (ctx_insert sets ``sn``);
+  // retired snapshots stay allocated, never freed.
   Snap* sn = c->snap.load(std::memory_order_acquire);
   int nb = 0;
   bool failed = false;
@@ -1572,26 +1726,19 @@ static int64_t scan_segment(Ctx* c, next_fn next, const uint8_t* buf,
         uid = snap_find(sn, buf, pi[k], pl[k], ph[k], pk[k], &s_);
         if (uid < 0) {
           bool fresh;
-          int64_t t_lock = cnt ? now_ns() : 0, t_held = 0;
-          {
-            std::lock_guard<std::mutex> lk(c->mu);
-            if (cnt) t_held = now_ns();
-            int64_t before = c->n_ent;
-            uid = ctx_insert_locked(c, buf, pi[k], pl[k], ph[k], pk[k], cnt);
-            if (uid < 0) {
-              failed = true;
-              return;
-            }
-            fresh = c->n_ent > before;
+          int64_t t_in = cnt ? now_ns() : 0;
+          uid = ctx_insert(c, &sn, buf, pi[k], pl[k], ph[k], pk[k], &fresh,
+                           cnt);
+          if (uid < 0) {
+            failed = true;
+            return;
           }
           if (cnt) {
             cnt[SC_INTERN_LOCKS] += 1;
             cnt[SC_INSERTS] += fresh;
-            cnt[SC_INTERN_NS] += now_ns() - t_lock;
-            cnt[SC_INTERN_WAIT_NS] += t_held - t_lock;
+            cnt[SC_INTERN_NS] += now_ns() - t_in;
           }
-          // The merge runs OUTSIDE the intern mutex: first-seen pieces
-          // on different threads merge concurrently.
+          // First-seen pieces on different threads merge concurrently.
           if (fresh &&
               !fuse_new_piece(fs, fsc, buf, pi[k], pl[k], uid, ph[k],
                               pk[k], cnt)) {
@@ -1852,9 +1999,13 @@ void* tt_ctx_new(int pattern) {
   if (!c) return nullptr;
   c->pattern = pattern;
   c->subseg = subseg_bytes();
-  c->n_ent = 0;
-  c->arena_len = 0;
-  Snap* s = make_snap(1 << 12, 1 << 16);
+  c->n_ent.store(0, std::memory_order_relaxed);
+  c->arena_len.store(0, std::memory_order_relaxed);
+  // 2^16 slots (1 MiB at 16 bytes a slot) and a 2 MiB arena, of which
+  // only the bytes written are touched: a cold pass over 8 MB of text
+  // interns ~17k pieces (the load limit is 2^15) with ~0.64 MB of
+  // pieces over 8 bytes, so it grows nothing mid-scan.
+  Snap* s = make_snap(1 << 16, 1 << 21);
   if (!s) {
     delete c;
     return nullptr;
@@ -1865,7 +2016,9 @@ void* tt_ctx_new(int pattern) {
 
 void tt_ctx_free(void* p) { delete (Ctx*)p; }
 
-int64_t tt_ctx_n_pieces(void* p) { return ((Ctx*)p)->n_ent; }
+int64_t tt_ctx_n_pieces(void* p) {
+  return ((Ctx*)p)->n_ent.load(std::memory_order_acquire);
+}
 
 // Single-segment convenience wrapper (also the nthreads=1 path).
 int64_t tt_ctx_split(void* p, const uint8_t* buf, int64_t start, int64_t end,
@@ -1876,6 +2029,7 @@ int64_t tt_ctx_split(void* p, const uint8_t* buf, int64_t start, int64_t end,
   if (end > (int64_t)INT32_MAX) return -5;  // int32 news spans
   if (end - start > cap) return -2;
   std::vector<NewRec> news;
+  ctx_size_memos(c, 1);
   int64_t n = scan_segment(c, pick(c->pattern), buf, start, end, piece_uid,
                            news, ctx_memo_for(c, 0), ctx_memo16_for(c, 0));
   if (n < 0) return n;
@@ -2006,13 +2160,11 @@ static int64_t split_batch_impl(Ctx* c, const uint8_t* buf,
   std::vector<ScanSlots> tc;  // each worker's counters
 
   auto worker = [&](int t) {
-    MemoEnt* memo =
-        (size_t)t < c->memos.size() ? c->memos[(size_t)t] : nullptr;
-    MemoEnt16* memo16 =
-        (size_t)t < c->memos16.size() ? c->memos16[(size_t)t] : nullptr;
-    FuseScratch fsc;
     int64_t* cnt = counters ? tc[(size_t)t].v : nullptr;
     int64_t t0 = cnt ? now_ns() : 0;
+    MemoEnt* memo = ctx_memo_for(c, t);
+    MemoEnt16* memo16 = ctx_memo16_for(c, t);
+    FuseScratch fsc;
     for (;;) {
       int64_t k = next_k.fetch_add(1);
       if (k >= n_subs || err.load(std::memory_order_relaxed)) break;
@@ -2034,12 +2186,8 @@ static int64_t split_batch_impl(Ctx* c, const uint8_t* buf,
   int t_count = (int)(nthreads < n_subs ? nthreads : n_subs);
   int n_workers = t_count > 1 ? t_count : 1;
   if (counters) tc.resize((size_t)n_workers);
-  // Memos allocate on the main thread (ctx_memo_for is not
-  // thread-safe); worker t then owns slot t for the call's duration.
-  for (int t = 0; t < t_count; t++) {
-    ctx_memo_for(c, t);
-    ctx_memo16_for(c, t);
-  }
+  // Worker t owns memo slot t for the call's duration.
+  ctx_size_memos(c, n_workers);
   if (t_count <= 1) {
     worker(0);
   } else {

@@ -30,7 +30,12 @@ time the best of ``--cycles`` runs (``bench.py`` ``scan_threads_bench``):
    (``runtime.native.SCAN_COUNTERS``: interning, fused merges by class,
    deferred news, holes, worker time); after each call the news are
    resolved on the host and the holes backfilled, untimed, and every
-   document's ids are held to Rust tiktoken.
+   document's ids are held to Rust tiktoken;
+6. fresh: on a new ``SplitContext``, ``split_batch`` of the first 16
+   documents twice, at 1, 2, 4 and 8 threads, the best of ``--cycles``
+   contexts: the first call's wall (``call_s``) holds the context's
+   per-worker set-up and the pieces' first sight, the second call's
+   neither.
 
 The scan runs on the host; the tokenizer sits on ``--device`` (the card
 by default, ``--device cpu`` without one).  It prints one JSON record
@@ -125,6 +130,18 @@ def measure(mb: float, seed: int, cycles: int, device: str) -> dict:
         points.append({"threads": t, "MBps": n / best_s(lambda: emit(t), cycles) / 1e6})
         emit_exact(t)
     default = native.default_threads()
+    head = slice(0, 16)
+    hbuf, hs, he = b"".join(datas[head]), starts[head] - starts[0], ends[head] - starts[0]
+    fresh = []
+    for t in THREADS:
+        calls = [[], []]
+        for _ in range(cycles):
+            fctx = native.SplitContext(pid)
+            for out in calls:
+                c = native.scan_counters()
+                fctx.split_batch(hbuf, hs, he, nthreads=t, counters=c)
+                out.append(native.scan_report(c)["call_s"])
+        fresh.append({"threads": t, "first_call_s": min(calls[0]), "second_call_s": min(calls[1])})
     k = chunk_docs
     chunks = [(b"".join(datas[i : i + k]), starts[i : i + k] - starts[i], ends[i : i + k] - starts[i],
                want[i : i + k]) for i in range(0, len(docs), k)]
@@ -145,6 +162,7 @@ def measure(mb: float, seed: int, cycles: int, device: str) -> dict:
         "split_emit_s": best_s(lambda: emit(default), cycles),
         "encode_batch_warm_s": best_s(lambda: tok.encode_batch(docs), cycles),
         "cold": cold,
+        "fresh": {"docs": len(hs), "points": fresh},
     }
 
 
