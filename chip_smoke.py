@@ -23,13 +23,20 @@ result line):
    sleep kernel, CUDA events; the plain merge by CUDA events around each
    call) is set beside the tile's bound: its bytes over 3.35 TB/s, the
    tile in and out and the table bytes of the distinct pairs the plain
-   merge had to probe, each slot once (``table_bytes``);
+   merge had to probe, each slot once (``table_bytes``).  Then the card's
+   own buckets beyond the packer's (``LONG_BUCKETS``, 1024 and 2048): for
+   cl100k_synth, ``[L, 128]`` and ``[L, 8192]`` tiles of phase 5's corpus
+   pieces of 513-2,048 bytes (its CJK runs) through the kernel, equal to
+   the plain merge and the native host merge, with the kernel's device
+   time and bound beside the plain merge's and ``bpe_encode_batch_spans``'
+   on the same pieces;
 4. main path, gpt2: ``encode_batch`` of ``tests/testdata/lib.rs.txt`` with
    every wave forced onto the card must give the 11,378 golden ids;
 5. main path, cl100k_synth: an ~8 MB cold corpus made from ``--seed``
    streams through ``encode_batch_stream`` in 256-document chunks and must
    equal, document for document, a host-routed tokenizer of the same
-   vocabulary (every wave merged by the native C++ heap merge, no card);
+   vocabulary (every wave merged by the native C++ heap merge, no card),
+   and must have merged pieces over 512 bytes on the card;
    bulk trims and decode are checked on 64 fresh documents;
 6. probe experiments, on the three tables of phase 3 (the same table
    builds): the row-copy (K3, each pair's probe window copied in one
@@ -113,6 +120,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 BUCKETS = (16, 64, 128, 256, 512)  # tokenizer_tpu_torch/ops/packing.py BUCKETS
 TILE_B = 8192  # the packer's widest tile (packing.py MAX_B)
+#: The card's own buckets beyond BUCKETS (gpu.py DEVICE_BUCKETS), timed in
+#: phase 3 on the long pieces of phase 5's corpus, beside the native host
+#: merge, at one wave's share of columns and at the packer's widest tile.
+LONG_BUCKETS = (1024, 2048)
+LONG_TILES = (128, TILE_B)
 HOST_COLS = 1024
 LOOKUP_PAIRS = 65536
 CHUNK_DOCS = 256
@@ -380,6 +392,97 @@ def kernel_vs_plain(tok, pieces_by_L, device, rng) -> dict:
         f"{name}: tt_lookup_pairs != PairTable.lookup",
     )
     print(f"phase 3 {name} tt_lookup_pairs == PairTable.lookup on {LOOKUP_PAIRS} pairs", flush=True)
+    return res
+
+
+def long_pieces(tok, docs) -> dict:
+    """Per L of ``LONG_BUCKETS``, the distinct regex pieces of ``docs``
+    with prev_L < len <= L (the first prev_L is BUCKETS' widest), sorted."""
+    seen = set()
+    for d in docs:
+        seen.update(b for b in (p.encode("utf-8") for p in tok._re.findall(d)) if len(b) > BUCKETS[-1])
+    out, prev = {}, BUCKETS[-1]
+    for L in LONG_BUCKETS:
+        out[L] = sorted(p for p in seen if prev < len(p) <= L)
+        prev = L
+    return out
+
+
+def host_ms(fn, reps: int = REPS) -> float:
+    """Median wall ms of ``reps`` host calls of ``fn()`` after one warm-up."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[len(times) // 2]
+
+
+def long_vs_host(tok, pool_by_L, device, rng, smi: str) -> dict:
+    """Phase 3's long rows, cl100k_synth: per L of ``LONG_BUCKETS`` and B
+    of ``LONG_TILES``, an ``[L, B]`` tile of the corpus's long pieces (each
+    column one piece of ``pool_by_L[L]``, drawn in a random order, the pool
+    repeated where it has fewer than B) through the merge kernel, equal to
+    the plain merge and to the native host merge; the kernel's device time
+    beside ``plain_and_bound``'s bound, the plain merge (CUDA events, one
+    timed call) and the port's ``bpe_encode_batch_spans`` on the same
+    pieces at the default threads (host wall, median of ``REPS``)."""
+    import numpy as np
+    import torch
+
+    from tokenizer_tpu_torch.ops import merge_cuda
+    from tokenizer_tpu_torch.ops.exp_probe import median_ms, queued_ms
+    from tokenizer_tpu_torch.ops.merge_torch import device_table, merge_packed_torch
+    from tokenizer_tpu_torch.runtime.native import bpe_encode_batch_spans, default_threads
+
+    table = tok.table
+    tab = device_table(table, device)
+    kw = dict(slot_bits=table.slot_bits, max_probes=table.max_probes)
+    res = {"ms": {}, "plain_ms": {}, "bound_us": {}, "host_ms": {}, "merges": {}, "max_abs_err": 0}
+    for L in LONG_BUCKETS:
+        pool = pool_by_L[L]
+        check(pool, f"phase 3: the corpus has no piece for L={L}")
+        order = rng.permutation(len(pool))
+        for B in LONG_TILES:
+            pieces = [pool[order[i % len(pool)]] for i in range(B)]
+            ids, lengths = pack(table, pieces, L)
+            di = torch.from_numpy(ids).to(device)
+            dl = torch.from_numpy(lengths).to(device)
+            k_ids, k_n = merge_cuda.merge_packed(tab, di, dl, **kw)
+            (p_ids, p_n), bound = plain_and_bound(table, tab, di, dl)
+            torch.cuda.synchronize()
+            err = max(int((k_ids.long() - p_ids.long()).abs().max()),
+                      int((k_n.long() - p_n.long()).abs().max()))
+            res["max_abs_err"] = max(res["max_abs_err"], err)
+            check(err == 0, f"cl100k_synth [{L}, {B}]: kernel != plain (max |diff| {err})")
+            buf = b"".join(pieces)
+            ends = np.cumsum([len(p) for p in pieces], dtype=np.int64)
+            starts = ends - lengths.astype(np.int64)
+            h_out, h_offs, h_n = bpe_encode_batch_spans(buf, starts, ends, table)
+            got_ids, got_n = k_ids.cpu().numpy(), k_n.cpu().numpy()
+            check(np.array_equal(got_n, h_n) and all(
+                np.array_equal(got_ids[: h_n[c], c], h_out[h_offs[c] : h_offs[c] + h_n[c]])
+                for c in range(B)), f"cl100k_synth [{L}, {B}]: kernel != native host merge")
+            key = f"{L}x{B}"
+            res["ms"][key] = queued_ms(partial(merge_cuda.merge_packed, tab, di, dl, **kw))
+            res["plain_ms"][key] = median_ms(partial(merge_packed_torch, tab, di, dl, **kw), reps=1)
+            res["host_ms"][key] = host_ms(partial(bpe_encode_batch_spans, buf, starts, ends, table))
+            res["bound_us"][key] = bound["bound_us"]
+            res["merges"][key] = int((lengths - h_n).sum())
+            ms, b_us, h = res["ms"][key], bound["bound_us"], res["host_ms"][key]
+            print(
+                f"phase 3 cl100k_synth long [{L}, {B}] ({len(pool)} distinct corpus pieces of "
+                f"{min(map(len, pool))}-{max(map(len, pool))} bytes; longest chain "
+                f"{int((lengths - h_n).max())} merges, {res['merges'][key]} in all) kernel == "
+                f"plain == native host merge (exact); device ms (queued): kernel {ms:.4f}; plain "
+                f"{res['plain_ms'][key]:.4f} ms (CUDA events, one call); bound {b_us:.3f} us "
+                f"(bytes: tile {bound['tile_bytes']}, table {bound['table_bytes']} for "
+                f"{bound['pairs']} distinct pairs): {b_us / 1e3 / ms:.4%} of it; native "
+                f"bpe_encode_batch_spans {h:.4f} ms at {default_threads()} threads (host wall, "
+                f"median of {REPS}): kernel {h / ms:.2f}x faster; card {smi}",
+                flush=True,
+            )
     return res
 
 
@@ -1088,6 +1191,11 @@ def main() -> int:
         k_res[name] = kernel_vs_plain(
             toks[name], bucket_pieces(toks[name], sample, rng, TILE_B), device, rng
         )
+    docs = gen_corpus(CORPUS_MB, args.seed, seed_text)  # phase 5's corpus
+    t0 = time.perf_counter()
+    long_res = long_vs_host(toks["cl100k_synth"], long_pieces(toks["cl100k_synth"], docs),
+                            device, rng, smi)
+    print(f"phase 3 long rows {time.perf_counter() - t0:.2f} s", flush=True)
 
     # -- 4. main path, gpt2 golden -----------------------------------------
     merge_cuda.LAUNCHES = merge_cuda.V1_LAUNCHES = 0
@@ -1103,7 +1211,6 @@ def main() -> int:
           f"device_pieces {gpt2.stats.device_pieces}", flush=True)
 
     # -- 5. main path, cl100k_synth cold stream -----------------------------
-    docs = gen_corpus(CORPUS_MB, args.seed, seed_text)
     nbytes = sum(len(d.encode("utf-8")) for d in docs)
     tok = forced(tt.create_by_encoder_name("cl100k_synth", allow_fetch=False, device=device))
     tok._ensure_device()  # table upload outside the timed region
@@ -1116,6 +1223,8 @@ def main() -> int:
     st = tok.stats.as_dict()  # the stream's own counters, before the trims
     stream_launches = merge_cuda.LAUNCHES - before
     check(stream_launches > 0 and st["device_pieces"] > 0, "cl100k_synth stream did not reach the kernel")
+    check(st["device_long_pieces"] > 0,
+          f"cl100k_synth stream merged no piece over {BUCKETS[-1]} bytes on the card")
 
     ref = host_reference("cl100k_synth")
     t0 = time.perf_counter()
@@ -1146,7 +1255,9 @@ def main() -> int:
     print(f"phase 5 cold encode_batch_stream {nbytes / cold_s / 1e6:.3f} MB/s ({cold_s:.3f} s; "
           f"host-routed reference {nbytes / ref_s / 1e6:.3f} MB/s); stream: device_waves "
           f"{st['device_waves']}, device_pieces {st['device_pieces']}, unique_pieces "
-          f"{st['unique_pieces']}, host_fallback_pieces {st['host_fallback_pieces']}, "
+          f"{st['unique_pieces']}, pieces over {BUCKETS[-1]} bytes merged on the card "
+          f"(device_long_pieces) {st['device_long_pieces']}, host_fallback_pieces "
+          f"{st['host_fallback_pieces']}, "
           f"device_blocking_s {st['device_blocking_s']:.4f}, launches {stream_launches}; "
           f"main-path launches in all {launches} (gpt2 {launches_gpt2}); card {smi}", flush=True)
 
@@ -1242,7 +1353,7 @@ def main() -> int:
             "mesh (phase 8)": mesh["launches"],
             "parity (phase 9)": parity["launches"],
         },
-        "max_abs_err": max(r["max_abs_err"] for r in k_res.values()),
+        "max_abs_err": max([r["max_abs_err"] for r in k_res.values()] + [long_res["max_abs_err"]]),
         # one [L, 8192] tile of each bucket, cl100k_synth table, summed;
         # ms: device time (exp_probe.queued_ms), plain_ms: CUDA events
         "ms": sum(ns["ms"].values()),
@@ -1254,6 +1365,14 @@ def main() -> int:
         "v1_ms_by_bucket": {f"{v}/L{L}": r["v1_ms"][L] for v, r in k_res.items() for L in BUCKETS},
         "plain_ms_by_bucket": {f"{v}/L{L}": r["plain_ms"][L] for v, r in k_res.items() for L in BUCKETS},
         "bound_us_by_bucket": {f"{v}/L{L}": r["bound_us"][L] for v, r in k_res.items() for L in BUCKETS},
+        # phase 3's long rows, cl100k_synth: [L, B] tiles of the corpus's
+        # long pieces; host_ms: the native bpe_encode_batch_spans on them
+        "long_ms_by_tile": long_res["ms"],
+        "long_plain_ms_by_tile": long_res["plain_ms"],
+        "long_bound_us_by_tile": long_res["bound_us"],
+        "long_host_ms_by_tile": long_res["host_ms"],
+        "long_merges_by_tile": long_res["merges"],
+        "stream_device_long_pieces": st["device_long_pieces"],
         "cold_stream_MBps": nbytes / cold_s / 1e6,
         "corpus_MBps": corpus["MBps"],
         "corpus_host_reference_MBps": corpus["ref_MBps"],

@@ -688,6 +688,45 @@ def test_synth_parity_on_card_vs_tiktoken(cuda, name, lib_rs_text):
     assert merge_cuda.LAUNCHES > before and tok.stats.host_wave_pieces == 0
 
 
+@pytest.mark.parametrize("entry", ["batch", "stream"])
+def test_long_pieces_merge_on_card_vs_tiktoken(cuda, entry, lib_rs_text):
+    """gen_corpus documents with their CJK runs (each one piece of 600-1,797
+    bytes) through a forced card tokenizer: ids equal to Rust tiktoken, no
+    piece on the host fallback, and the merge kernel launched on tiles with
+    L > 512 (the card's own buckets, gpu.DEVICE_BUCKETS), one launch a tile."""
+    pytest.importorskip("tiktoken")
+    sys.path.insert(0, str(REPO / "tools"))
+    import synth_goldens
+    from tokenizer_tpu_torch import gpu
+
+    rust = synth_goldens.rust_encoding("cl100k_synth")
+    tok = _forced_card("cl100k_synth")
+    docs = chip_smoke.gen_corpus(0.5, 7, lib_rs_text)
+    long = {b for d in docs for b in (p.encode() for p in tok._re.findall(d)) if len(b) > 512}
+    assert long and max(map(len, long)) <= gpu.DEVICE_BUCKETS[-1] == merge_cuda.MAX_L
+    tiles = []
+    merge = tok._merge_fn
+
+    def watch(tab, ids, lengths):
+        tiles.append(int(ids.shape[0]))
+        return merge(tab, ids, lengths)
+
+    tok._merge_fn = watch
+    before = merge_cuda.LAUNCHES
+    if entry == "batch":
+        out = tok.encode_batch(docs)
+    else:
+        out = [ids for b in tok.encode_batch_stream([docs[i : i + 16] for i in range(0, len(docs), 16)])
+               for ids in b]
+    torch.cuda.synchronize()
+    for d, ids in zip(docs, out):
+        assert list(ids) == rust.encode_ordinary(d), repr(d[:80])
+    assert merge_cuda.LAUNCHES - before == len(tiles)
+    assert {L for L in tiles if L > 512} == {L for L in gpu.DEVICE_BUCKETS if any(
+        L // 2 < len(b) <= L for b in long)}
+    assert tok.stats.host_fallback_pieces == 0 and tok.stats.device_long_pieces == len(long)
+
+
 @pytest.mark.parametrize("case", list(chip_smoke.IN_FLIGHT))
 def test_parity_in_flight_on_card(cuda, case):
     """chip_smoke.py phase 9 (c) on the card: each case's waves really are in

@@ -3,7 +3,8 @@
 ``GpuTokenizer`` passes one accumulating counter array (``stats.scan``)
 to every native split call and batched host merge.  Here the calls are
 watched one by one while ``encode_batch_stream`` runs a cold and then a
-warm pass over ``chip_smoke.gen_corpus(0.5, seed)`` in chunks of 16
+warm pass over ``chip_smoke.gen_corpus(0.5, seed)`` with one piece over
+the merge's widest bucket added (:func:`corpus`) in chunks of 16
 documents, on three routes: default, every wave on the host
 (``chip_smoke.host_reference``) and every wave on the merge (forced, the
 plain PyTorch merge here).  Each call's counters must agree with what the
@@ -111,7 +112,7 @@ def run(monkeypatch):
     def go(seed: int, route: str, threads: int = 8) -> dict:
         key = (seed, route, threads)
         if key not in _RUNS:
-            docs = gen_corpus(0.5, seed, (REPO / "tests" / "testdata" / "lib.rs.txt").read_text())
+            docs = corpus(seed)
             chunks = [docs[i : i + CHUNK_DOCS] for i in range(0, len(docs), CHUNK_DOCS)]
             want = _reference(seed, docs)
             with monkeypatch.context() as m:
@@ -131,6 +132,18 @@ def run(monkeypatch):
         return _RUNS[key]
 
     return go
+
+
+def corpus(seed: int) -> list:
+    """``gen_corpus(0.5, seed)`` and, in its middle, a run of 700 CJK
+    ideographs: one piece of 2,100 bytes.  The corpus's own longest pieces
+    (its CJK runs, at most 1,797 bytes) merge on the device route's
+    widest bucket (``MAX_L``), so without it the forced route would hand
+    the batched native merge nothing."""
+    docs = gen_corpus(0.5, seed, (REPO / "tests" / "testdata" / "lib.rs.txt").read_text())
+    rng = np.random.default_rng(seed)
+    docs.insert(len(docs) // 2, "".join(map(chr, rng.integers(0x4E00, 0x56D0, size=700))) + " tail")
+    return docs
 
 
 _REFS: dict = {}

@@ -87,7 +87,12 @@ def lookup_pairs_torch(
     kl_a, kr_a, vv_a = tab["key_left"], tab["key_right"], tab["values"]
     out = torch.full(left.shape, MAX_RANK, dtype=torch.int32, device=left.device)
     unresolved = valid
+    # On the CPU the loop stops once every pair is resolved; on a card that
+    # test would cost a sync a round, so it runs all max_probes rounds.
+    on_cpu = left.device.type == "cpu"
     for _ in range(max_probes):
+        if on_cpu and not bool(unresolved.any()):
+            break
         kl = kl_a[slot]
         kr = kr_a[slot]
         hit = unresolved & (kl == left) & (kr == right)
@@ -112,61 +117,74 @@ def merge_packed_torch(
     pairs inside each piece, then the two pairs each merge touches.  Every
     other pair probed has a -1 in it and misses.  ``on_probe(left, right)``,
     if given, sees each probed pair tensor.
+
+    Columns are independent, and one whose pairs all miss never changes
+    again, so the loop works on the live columns only: those of length 2
+    or more at the start, less each round the columns that have no pair
+    left to merge, each written back to the output as it drops.  A tile
+    whose long pieces sit among padding costs their columns, not ``B``.
     """
     L, B = ids.shape
     dev = ids.device
-    ids = ids.clone()  # the result never aliases the caller's tile
-    n = lengths.to(torch.int32, copy=True)
+    out = ids.clone()  # the result never aliases the caller's tile
+    out_n = lengths.to(torch.int32, copy=True)
+    if L < 2:
+        return out, out_n
     row = torch.arange(L, dtype=torch.int32, device=dev)[:, None]
-    cols = torch.arange(B, device=dev)
-    pad_ids = torch.full((1, B), -1, dtype=torch.int32, device=dev)
-    pad_rank = torch.full((1, B), MAX_RANK, dtype=torch.int32, device=dev)
 
     def probe(left, right):
         if on_probe is not None:
             on_probe(left, right)
         return lookup_pairs_torch(tab, slot_bits, max_probes, left, right)
 
-    if L >= 2:
-        inside = row < n[None, :] - 1
-        rank = probe(torch.where(inside, ids, -1), torch.cat([ids[1:], pad_ids]))
-    else:
-        rank = torch.full((L, B), MAX_RANK, dtype=torch.int32, device=dev)
+    def shift_up(x, fill):
+        """Rows 1.. of ``x`` moved up one, ``fill`` in the last row."""
+        return torch.cat([x[1:], torch.full_like(x[:1], fill)])
+
+    live = torch.nonzero(out_n >= 2).flatten()
+    ids, n = out[:, live], out_n[live]
+    rank = probe(torch.where(row < n[None, :] - 1, ids, -1), shift_up(ids, -1))
 
     it = 0
-    while it < L - 1 and int(rank.min()) != MAX_RANK:
-        j = torch.argmin(rank, dim=0).to(torch.int32)  # first min per column
+    while it < L - 1 and live.numel():
         minrank = rank.min(dim=0).values
-        active = minrank != MAX_RANK
+        done = minrank == MAX_RANK
+        if bool(done.any()):
+            # No pair left in these columns: write them back and drop them.
+            out[:, live[done]] = ids[:, done]
+            out_n[live[done]] = n[done]
+            keep = ~done
+            live, ids, n, rank = live[keep], ids[:, keep], n[keep], rank[:, keep]
+            continue
+        cols = torch.arange(live.numel(), device=dev)
+        j = torch.argmin(rank, dim=0).to(torch.int32)  # first min per column
         jb = j[None, :]
 
         # ids: row j <- merged id (== minrank); rows > j shift up.
-        ids_shift = torch.cat([ids[1:], pad_ids])
-        ids_new = torch.where(
-            row < jb, ids, torch.where(row == jb, minrank[None, :], ids_shift)
+        ids = torch.where(
+            row < jb, ids, torch.where(row == jb, minrank[None, :], shift_up(ids, -1))
         )
-        ids = torch.where(active[None, :], ids_new, ids)
-        n = torch.where(active, n - 1, n)
+        n = n - 1
 
         # Re-probe the two pairs the merge touched.
         jl = j.long()
         id_jm1 = ids[(jl - 1).clamp(min=0), cols]
         id_j = ids[jl, cols]
         id_jp1 = ids[(jl + 1).clamp(max=L - 1), cols]
-        probe_left = probe(torch.where(active & (j > 0), id_jm1, -1), id_j)
-        probe_right = probe(id_j, torch.where(active & (j < n - 1), id_jp1, -1))
+        probe_left = probe(torch.where(j > 0, id_jm1, -1), id_j)
+        probe_right = probe(id_j, torch.where(j < n - 1, id_jp1, -1))
 
-        rank_shift = torch.cat([rank[1:], pad_rank])
-        rank_new = torch.where(
+        rank = torch.where(
             row < jb - 1,
             rank,
             torch.where(
                 row == jb - 1,
                 probe_left[None, :],
-                torch.where(row == jb, probe_right[None, :], rank_shift),
+                torch.where(row == jb, probe_right[None, :], shift_up(rank, MAX_RANK)),
             ),
         )
-        rank_new = torch.where(row >= n[None, :] - 1, MAX_RANK, rank_new)
-        rank = torch.where(active[None, :], rank_new, rank)
+        rank = torch.where(row >= n[None, :] - 1, MAX_RANK, rank)
         it += 1
-    return ids, n
+    out[:, live] = ids
+    out_n[live] = n
+    return out, out_n
