@@ -29,7 +29,10 @@ result line):
    pieces of 513-2,048 bytes (its CJK runs) through the kernel, equal to
    the plain merge and the native host merge, with the kernel's device
    time and bound beside the plain merge's and ``bpe_encode_batch_spans``'
-   on the same pieces;
+   on the same pieces; and each wave's own readiness (``readiness``): a
+   short wave's finish, dispatched before a ``[2048, 8192]`` wave of those
+   pieces, returns in under ``READY_SHARE`` of that wave's K1 time, with
+   the plain merge's ids;
 4. main path, gpt2: ``encode_batch`` of ``tests/testdata/lib.rs.txt`` with
    every wave forced onto the card must give the 11,378 golden ids;
 5. main path, cl100k_synth: an ~8 MB cold corpus made from ``--seed``
@@ -125,6 +128,10 @@ TILE_B = 8192  # the packer's widest tile (packing.py MAX_B)
 #: merge, at one wave's share of columns and at the packer's widest tile.
 LONG_BUCKETS = (1024, 2048)
 LONG_TILES = (128, TILE_B)
+#: phase 3's readiness line: a wave's finish may take at most this share
+#: of the next wave's K1 time (it waited for all of it before each wave
+#: queued its own copy back).
+READY_SHARE = 0.25
 HOST_COLS = 1024
 LOOKUP_PAIRS = 65536
 CHUNK_DOCS = 256
@@ -484,6 +491,49 @@ def long_vs_host(tok, pool_by_L, device, rng, smi: str) -> dict:
                 flush=True,
             )
     return res
+
+
+def readiness(tok, pool: list, rng) -> dict:
+    """Each device wave's own readiness, through the tokenizer's wave path:
+    dispatch a short wave k (one ``[16, 128]`` tile), then a wave k+1 of one
+    ``[2048, 8192]`` tile of ``pool``'s pieces (the corpus's CJK runs), then
+    finish wave k (``_bucket_out``) and time it on the host clock.  Wave k's
+    copy back was queued behind its own launches, so its finish must not
+    wait for wave k+1's K1; its ids must equal the plain merge's.  Returns
+    both finishes' ms (wave k+1's waits for its K1), wave k+1's K1 alone
+    (device ms, ``queued_ms``) and the error."""
+    import numpy as np
+    import torch
+
+    from tokenizer_tpu_torch.ops import merge_cuda
+    from tokenizer_tpu_torch.ops.exp_probe import queued_ms
+    from tokenizer_tpu_torch.ops.merge_torch import device_table, merge_packed_torch
+    from tokenizer_tpu_torch.ops.packing import PackedBatch
+
+    table = tok.table
+    short = [pool[int(i)][: int(rng.integers(2, 17))] for i in rng.integers(0, len(pool), 128)]
+    order = rng.permutation(len(pool))
+    long = [pool[order[i % len(pool)]] for i in range(TILE_B)]
+    waves = [PackedBatch(L, *pack(table, pieces, L), len(pieces)) for L, pieces in ((16, short), (2048, long))]
+    tok._ensure_device()
+    torch.cuda.synchronize()
+    wave_k = tok._dispatch_tiles(waves[:1])
+    wave_k1 = tok._dispatch_tiles(waves[1:])
+    t0 = time.perf_counter()
+    ((rows, counts),) = tok._bucket_out(waves[:1], wave_k)
+    finish_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    tok._bucket_out(waves[1:], wave_k1)
+    next_ms = (time.perf_counter() - t0) * 1e3
+    tab = device_table(table, tok.device)
+    kw = dict(slot_bits=table.slot_bits, max_probes=table.max_probes)
+    ids, lengths = (torch.from_numpy(a).to(tok.device) for a in (waves[0].ids, waves[0].lengths))
+    p_ids, p_n = merge_packed_torch(tab, ids, lengths, **kw)
+    err = max(int(np.abs(rows.T.astype(np.int64) - p_ids.cpu().numpy()).max()),
+              int(np.abs(counts.astype(np.int64) - p_n.cpu().numpy()).max()))
+    ids, lengths = (torch.from_numpy(a).to(tok.device) for a in (waves[1].ids, waves[1].lengths))
+    k1_ms = queued_ms(partial(merge_cuda.merge_packed, tab, ids, lengths, **kw))
+    return {"finish_ms": finish_ms, "next_finish_ms": next_ms, "next_k1_ms": k1_ms, "max_abs_err": err}
 
 
 def lookup_pairs_set(table, rng, n: int):
@@ -1193,9 +1243,20 @@ def main() -> int:
         )
     docs = gen_corpus(CORPUS_MB, args.seed, seed_text)  # phase 5's corpus
     t0 = time.perf_counter()
-    long_res = long_vs_host(toks["cl100k_synth"], long_pieces(toks["cl100k_synth"], docs),
-                            device, rng, smi)
+    long_pool = long_pieces(toks["cl100k_synth"], docs)
+    long_res = long_vs_host(toks["cl100k_synth"], long_pool, device, rng, smi)
     print(f"phase 3 long rows {time.perf_counter() - t0:.2f} s", flush=True)
+    ready = readiness(toks["cl100k_synth"], long_pool[LONG_BUCKETS[-1]], rng)
+    next_k1_ms = ready["next_k1_ms"]
+    check(ready["max_abs_err"] == 0, f"phase 3 readiness: wave k != plain merge ({ready})")
+    check(ready["finish_ms"] < READY_SHARE * next_k1_ms,
+          f"phase 3 readiness: wave k's finish took {ready['finish_ms']:.4f} ms, not under "
+          f"{READY_SHARE:.0%} of wave k+1's K1 ({next_k1_ms:.4f} ms): it waited for the next wave")
+    print(f"phase 3 readiness cl100k_synth: wave k [16, 128] finished in {ready['finish_ms']:.4f} ms "
+          f"(host clock) with wave k+1's [{LONG_BUCKETS[-1]}, {TILE_B}] tile of CJK runs queued "
+          f"behind it, whose K1 alone takes {next_k1_ms:.4f} ms (device, queued): "
+          f"{ready['finish_ms'] / next_k1_ms:.2%} of it; wave k+1's own finish "
+          f"{ready['next_finish_ms']:.4f} ms; wave k == plain merge (exact); card {smi}", flush=True)
 
     # -- 4. main path, gpt2 golden -----------------------------------------
     merge_cuda.LAUNCHES = merge_cuda.V1_LAUNCHES = 0
@@ -1372,6 +1433,11 @@ def main() -> int:
         "long_bound_us_by_tile": long_res["bound_us"],
         "long_host_ms_by_tile": long_res["host_ms"],
         "long_merges_by_tile": long_res["merges"],
+        # phase 3's readiness: wave k's finish (host ms) with wave k+1's
+        # [2048, 8192] K1 queued behind it, and that K1's device ms
+        "readiness_finish_ms": ready["finish_ms"],
+        "readiness_next_finish_ms": ready["next_finish_ms"],
+        "readiness_next_k1_ms": next_k1_ms,
         "stream_device_long_pieces": st["device_long_pieces"],
         "cold_stream_MBps": nbytes / cold_s / 1e6,
         "corpus_MBps": corpus["MBps"],

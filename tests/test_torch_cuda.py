@@ -741,6 +741,22 @@ def test_parity_in_flight_on_card(cuda, case):
     assert merge_cuda.LAUNCHES > before
 
 
+def test_a_wave_finishes_without_the_next_wave_s_kernels(cuda, lib_rs_text):
+    """chip_smoke.py phase 3's readiness line: a short wave k dispatched
+    before a wave of one ``[2048, 8192]`` tile of CJK runs finishes in a
+    small fraction of that tile's K1 time (its copy back was queued behind
+    its own launches, not behind the next wave's), with the plain merge's
+    ids; the next wave's finish does wait for its K1."""
+    tok = _forced_card("cl100k_synth")
+    pool = chip_smoke.long_pieces(tok, chip_smoke.gen_corpus(1.0, 7, lib_rs_text))[2048]
+    assert pool
+    res = chip_smoke.readiness(tok, pool, np.random.default_rng(3))
+    print(json.dumps(res))
+    assert res["max_abs_err"] == 0
+    assert res["finish_ms"] < chip_smoke.READY_SHARE * res["next_k1_ms"], res
+    assert res["next_finish_ms"] > res["finish_ms"], res
+
+
 # -- the benchmark's cells --------------------------------------------------------
 
 
@@ -805,24 +821,45 @@ def test_bench_entry_on_card(cuda, case, tmp_path):
         assert all(0 < v < 1 for v in layers["k1_tile_bound_share"].values())
 
 
+#: The four-card stream's run, in a process of its own (argv: the repo, a
+#: work directory): late in a long process, such as a whole run of this
+#: file, torch.profiler dropped the cell's K1 rows from its trace.
+MESH_RUN = r"""
+import json, sys
+from pathlib import Path
+import torch
+repo, work = sys.argv[1], Path(sys.argv[2])
+sys.path[:0] = [repo, repo + "/tools"]
+import bench_entries, bench_torch, chip_smoke
+(mesh,) = [c for c, f in bench_entries.CASES.items() if f.get("mesh_devices")]
+n = torch.cuda.device_count()
+devices = [f"cuda:{i}" for i in range(4)] if n >= 4 else ["cuda:0"] * 4
+cuda = torch.device("cuda", 0)
+card = {"card": chip_smoke.smi_line(), "kind": torch.cuda.get_device_name(cuda), "device_count": n}
+(rec,) = bench_torch.run([mesh], 0, cuda, card, work=work / "work",
+                         bench=bench_entries.with_cases(bench_torch.load_benchmark(), 1),
+                         overrides={mesh: {"mb": 1.0, "devices": devices}})
+(work / "rec.json").write_text(json.dumps(rec))
+"""
+
+
 def test_bench_mesh_cell_on_card(cuda, tmp_path):
     """tools/bench_entries.py's four-card stream at 1 MB, one timed
     repetition, over every card where there are four, else over four
-    shards of ``cuda:0`` (each its own stream, upload and fetch): every
-    document equals tiktoken's ids, every wave goes to the shards, the
-    trace is complete card by card, and K1 launches on each shard's
-    stream."""
-    import bench_torch
+    shards of ``cuda:0`` (each its own stream, upload and fetch), traced in
+    a process of its own (``MESH_RUN``): every document equals tiktoken's
+    ids, every wave goes to the shards, the trace is complete card by
+    card, and K1 launches on each shard's stream."""
+    import subprocess
 
     require_vocab("cl100k_synth")
     pytest.importorskip("tiktoken")
-    (mesh,) = [c for c, f in bench_entries.CASES.items() if f.get("mesh_devices")]
     n = torch.cuda.device_count()
     devices = [f"cuda:{i}" for i in range(4)] if n >= 4 else ["cuda:0"] * 4
-    card = {"card": chip_smoke.smi_line(), "kind": torch.cuda.get_device_name(cuda), "device_count": n}
-    (rec,) = bench_torch.run([mesh], 0, cuda, card, work=tmp_path / "work",
-                             bench=bench_entries.with_cases(bench_torch.load_benchmark(), 1),
-                             overrides={mesh: {"mb": 1.0, "devices": devices}})
+    run = subprocess.run([sys.executable, "-c", MESH_RUN, str(REPO), str(tmp_path)], cwd=str(REPO),
+                         capture_output=True, text=True, timeout=600)
+    assert run.returncode == 0, run.stderr[-3000:]
+    rec = json.loads((tmp_path / "rec.json").read_text())
     assert rec["mismatched_documents"] == 0 and rec["documents_checked"] > 0
     assert rec["shards"] == devices and len(rec["cards"]) == n
     layers = rec["layers"]

@@ -69,8 +69,8 @@ def _watch_waves(tok, monkeypatch):
     waves, merges, held = [], [], []
     dispatch, bucket_out = tok._dispatch_tiles, tok._bucket_out
 
-    def watch_dispatch(batches):
-        wave = dispatch(batches)
+    def watch_dispatch(batches, *packed):
+        wave = dispatch(batches, *packed)
         waves.append(wave)
         return wave
 

@@ -159,11 +159,12 @@ def _reference(seed: int, docs: list) -> list:
 CASES = [(s, r) for s in SEEDS for r in ROUTES]
 
 
-def test_the_native_library_is_abi_12():
-    """The library the port loads is the one whose calls take counters: a
-    version mismatch would quietly turn the native path off."""
+def test_the_native_library_is_abi_13():
+    """The library the port loads is the one whose calls take counters and
+    that packs span waves: a version mismatch would quietly turn the native
+    path off."""
     assert native.available()
-    assert native._load().tt_abi_version() == native.ABI_VERSION == 12
+    assert native._load().tt_abi_version() == native.ABI_VERSION == 13
     assert len(SCAN_COUNTERS) == len(set(SCAN_COUNTERS)) == native.scan_counters().size
 
 

@@ -6,12 +6,14 @@ all single-string and trim methods inherit the host path), plus bulk
 batch methods that execute the merge loop on the card:
 
   host:   special-token segmentation → regex pre-split → piece dedup
-  device: byte->id init, packed [L, B] tiles
-          (:func:`~tokenizer_tpu_torch.ops.packing.pack_spans`), the
-          wave's tiles up in one copy from one page-locked buffer, one
-          launch of the hand-written CUDA merge kernel per tile
+  device: byte->id init, packed [L, B] tiles written natively into
+          one page-locked buffer
+          (:func:`~tokenizer_tpu_torch.ops.wave_pack.pack_wave`), the
+          wave's tiles up in one copy from it, one launch of the
+          hand-written CUDA merge kernel per tile
           (:func:`~tokenizer_tpu_torch.ops.merge_cuda.merge_packed`) on
-          the current stream, the wave's outputs back in one copy
+          the current stream, the wave's outputs back in one copy queued
+          right behind them, with an event the wave's finish waits on
   host:   vectorized reassembly — every unique piece's ids live as one
           row of a padded int32 matrix; a text's id sequence is a single
           masked gather ``rows[idx][mask]``, no per-token Python.
@@ -61,12 +63,16 @@ from .models.registry import (
     REGEX_PATTERN_3,
 )
 from .ops.merge_cuda import LANE, MAX_L, merge_packed
-from .ops.packing import BUCKETS, pack_pieces, pack_spans
+from .ops.packing import BUCKETS, pack_pieces
+from .ops.wave_pack import pack_wave, plan_spans
 from .parallel.encode_step import (
     dispatch_shards,
-    fetch_shards,
+    launch_shards,
+    queue_fetch,
+    read_fetch,
     replicate_table,
     shard_streams,
+    wave_buffer,
 )
 from .parallel.mesh import DataMesh, data_mesh, local_devices
 from .runtime.native import scan_counters, scan_report
@@ -211,17 +217,24 @@ class GpuStats:
 class _Wave:
     """A dispatched device wave: the ``(out_ids, out_n)`` tensors of every
     tile, shard by shard (shard 0's tiles, then shard 1's, ...), the
-    stream of each shard (None on the CPU) and the host buffer the wave's
-    input was uploaded from.  On a card that buffer is page-locked and
-    its copies asynchronous, so the wave holds it until every shard's
-    outputs are back on the host (:meth:`release`)."""
+    stream of each shard (None on the CPU), the host buffer the wave's
+    input was uploaded from, and its own readiness: the tiles' shapes,
+    the host buffer its outputs are copied back into and each shard's
+    event recorded after that copy (None on the CPU), all queued at
+    dispatch (:func:`~.parallel.encode_step.queue_fetch`).  On a card the
+    buffers are page-locked and the copies asynchronous, so the wave
+    holds the input buffer until every shard's outputs are back on the
+    host (:meth:`release`)."""
 
-    __slots__ = ("outs", "streams", "host")
+    __slots__ = ("outs", "streams", "host", "shapes", "back", "done")
 
-    def __init__(self, outs, streams, host):
+    def __init__(self, outs, streams, host, shapes=(), back=None, done=()):
         self.outs = outs
         self.streams = streams
         self.host = host
+        self.shapes = shapes
+        self.back = back
+        self.done = done
 
     def release(self) -> None:
         self.host = None
@@ -811,14 +824,20 @@ class GpuTokenizer(TikTokenizer):
             self._host_waves_since_dev = 0
         return self._dispatch_device(as_bytes, row_ids)
 
-    def _dispatch_tiles(self, batches) -> _Wave:
+    def _dispatch_tiles(self, batches, host=None) -> _Wave:
         """One upload per shard for the whole wave, then one merge launch
         per tile and shard, on the shard's stream (one device: the
         current stream), in :func:`~.parallel.encode_step.dispatch_shards`'
-        wave layout.  The host never waits for an earlier wave's kernels
-        before it can go on.  A fresh buffer per wave: nothing writes
-        into one whose copy may still be queued.  A stream chunk's wave
-        may be finished in a later step, on another thread.
+        wave layout, then each shard's copy back queued behind its
+        launches (:func:`~.parallel.encode_step.queue_fetch`): the wave's
+        finish waits for its own kernels and copies only, not for a
+        later wave's.  The host never waits for an earlier wave's kernels
+        before it can go on.  ``batches`` carry their ``ids`` and
+        ``lengths`` arrays, or, with ``host`` (the wave's buffer, already
+        packed: :func:`~.ops.wave_pack.pack_wave`), their ``shape``.  A
+        fresh buffer per wave: nothing writes into one whose copy may
+        still be queued.  A stream chunk's wave may be finished in a
+        later step, on another thread.
         """
         self._ensure_device()
         streams = self._streams or [
@@ -826,15 +845,20 @@ class GpuTokenizer(TikTokenizer):
         ]
         if not batches:
             return _Wave([], streams, None)
-        outs, host = dispatch_shards(
-            [(b.ids, b.lengths) for b in batches],
-            self._shard_devices(),
-            streams,
-            self._tabs,
-            self._merge_fn,
-        )
+        devices = self._shard_devices()
+        shapes = [b.shape for b in batches] if host is not None else [b.ids.shape for b in batches]
+        # Allocated before the launches, so that a new page-locked block
+        # never waits behind this wave's kernels.
+        back = wave_buffer(shapes, len(devices), self.device.type == "cuda")
+        if host is None:
+            outs, host = dispatch_shards(
+                [(b.ids, b.lengths) for b in batches], devices, streams, self._tabs, self._merge_fn
+            )
+        else:
+            outs = launch_shards(host, shapes, devices, streams, self._tabs, self._merge_fn)
+        done = queue_fetch(outs, len(batches), streams, back)
         self.stats.device_uploads += len(streams)
-        return _Wave(outs, streams, host)
+        return _Wave(outs, streams, host, shapes, back, done)
 
     def _dispatch_device(self, as_bytes: List[bytes], row_ids):
         import time
@@ -854,16 +878,17 @@ class GpuTokenizer(TikTokenizer):
         """Span-wave device dispatch: zero per-piece Python.
 
         The native wave arrives as byte ranges into one buffer;
-        :func:`pack_spans` buckets and fills tiles fully vectorized
-        (measured ~8x the per-piece pack loop) and the finish scatter is
-        array-at-a-time — the per-wave BLOCKING host cost that gates the
-        device route's e2e viability (VERDICT r3 next #2).
+        :func:`~.ops.wave_pack.plan_spans` routes it (``pack_spans``'
+        plan, no tile filled) and :func:`~.ops.wave_pack.pack_wave` writes
+        every tile natively, once, into the wave's upload buffer; the
+        finish scatter is array-at-a-time — the per-wave BLOCKING host
+        cost that gates the device route's e2e viability.
         """
         import time
 
         t_dispatch0 = time.perf_counter()
         b_quantum = self._ensure_device()
-        plan = pack_spans(
+        plan = plan_spans(
             buf,
             starts,
             ends,
@@ -871,7 +896,12 @@ class GpuTokenizer(TikTokenizer):
             buckets=DEVICE_BUCKETS,
             b_quantum=b_quantum,
         )
-        wave = self._dispatch_tiles(plan.batches)
+        host = None
+        if plan.batches:
+            n = len(self._shard_devices())
+            host = wave_buffer([t.shape for t in plan.batches], n, self.device.type == "cuda")
+            pack_wave(buf, starts, ends, self.table.byte_to_id, plan, n, host.numpy())
+        wave = self._dispatch_tiles(plan.batches, host)
         t_dispatch = time.perf_counter() - t_dispatch0
         return (
             "spans",
@@ -887,18 +917,19 @@ class GpuTokenizer(TikTokenizer):
 
     def _bucket_out(self, batches, wave: _Wave):
         """Materialize per-tile ([B, L] out_rows, out_n) pairs and count
-        device pieces: one device-to-host copy per shard for the whole
-        wave, on the shard's stream (:func:`~.parallel.encode_step.fetch_shards`).
-        Each copy is queued after its shard's kernels, which are queued
-        after its upload, so the upload buffer is released once every
-        shard's copy is back."""
+        device pieces: wait for the wave's own copies back, one per shard,
+        queued at dispatch behind the shard's kernels
+        (:func:`~.parallel.encode_step.read_fetch`: one event synchronize
+        per shard on a card).  Each copy is queued after its shard's
+        kernels, which are queued after its upload, so the upload buffer
+        is released once every shard's copy is back."""
         if not wave.outs:
             return []
-        tiles = fetch_shards(wave.outs, len(batches), wave.streams)
+        tiles = read_fetch(wave.back, wave.done, wave.shapes)
         wave.release()
-        for batch in batches:
+        for batch, (L, _) in zip(batches, wave.shapes):
             self.stats.device_pieces += batch.n_real
-            if batch.ids.shape[0] > BUCKETS[-1]:
+            if L > BUCKETS[-1]:
                 self.stats.device_long_pieces += batch.n_real
         return [(ids.T, n) for ids, n in tiles]
 

@@ -9,9 +9,9 @@ counters (tokens out, live columns), summed as the JAX step ``psum``\\ s
 them.  Those sums are this process's: a job's stay
 :func:`~.multihost.all_sum` on gloo.
 
-:func:`dispatch_shards` and :func:`fetch_shards` own the wave layout,
-for this step and for ``GpuTokenizer``'s waves alike (one device is a
-mesh of one).
+:func:`dispatch_shards` (:func:`launch_shards`), :func:`queue_fetch`
+and :func:`read_fetch` own the wave layout, for this step and for
+``GpuTokenizer``'s waves alike (one device is a mesh of one).
 """
 
 from __future__ import annotations
@@ -33,8 +33,12 @@ __all__ = [
     "gather_shards",
     "replicate_table",
     "shard_streams",
+    "wave_layout",
+    "wave_buffer",
     "dispatch_shards",
-    "fetch_shards",
+    "launch_shards",
+    "queue_fetch",
+    "read_fetch",
 ]
 
 
@@ -82,6 +86,20 @@ def on_stream(stream):
     return torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext()
 
 
+def wave_layout(shapes: Sequence[Tuple[int, int]], n: int) -> Tuple[int, int]:
+    """For tiles of ``shapes`` (full ``[L, B]``) over ``n`` shards: the int32
+    words of one shard's ids, and of its whole part (ids, then lengths)."""
+    n_ids = sum(L * (B // n) for L, B in shapes)
+    return n_ids, n_ids + sum(B // n for _, B in shapes)
+
+
+def wave_buffer(shapes: Sequence[Tuple[int, int]], n: int, on_card: bool) -> torch.Tensor:
+    """A wave's flat int32 host buffer in :func:`dispatch_shards`' layout:
+    page-locked (torch's caching host allocator) for a card.  The wave's
+    outputs come back in the same layout, into a buffer of the same size."""
+    return torch.empty(wave_layout(shapes, n)[1] * n, dtype=torch.int32, pin_memory=on_card)
+
+
 def dispatch_shards(
     tiles: Sequence[Tuple[np.ndarray, np.ndarray]],
     devices: Sequence[torch.device],
@@ -95,71 +113,111 @@ def dispatch_shards(
 
     ``tiles`` are ``(ids [L, B], lengths [B])`` int32 arrays, each B a
     multiple of ``len(devices)``; shard k takes columns ``[k*B/n,
-    (k+1)*B/n)`` of every tile.  The wave's ONE flat int32 host buffer is
-    laid out shard-major: for each shard, each tile's block of ids, then
-    each tile's block of lengths (the JAX package's wave layout,
-    ``tpu.py`` ``_dispatch_tiles``, per shard).  On a card it is
-    page-locked, from torch's caching host allocator, and each shard's
-    part crosses in one ``non_blocking`` copy; the tiles are views of the
-    device copies.  On the CPU the buffer serves in place.  Returns the
-    merges' results shard by shard (``[k * len(tiles) + t]``) and the
-    buffer, which must outlive the copies.
+    (k+1)*B/n)`` of every tile.  The wave's ONE flat int32 host buffer
+    (:func:`wave_buffer`) is laid out shard-major: for each shard, each
+    tile's block of ids, then each tile's block of lengths (the JAX
+    package's wave layout, ``tpu.py`` ``_dispatch_tiles``, per shard).
+    The tiles are copied into it, then :func:`launch_shards` runs.
+    Returns the merges' results shard by shard (``[k * len(tiles) + t]``)
+    and the buffer, which must outlive the copies.
     """
     n = len(devices)
-    shapes = [(ids.shape[0], ids.shape[1] // n) for ids, _ in tiles]
-    n_ids = sum(L * bs for L, bs in shapes)  # one shard's ids
-    part = n_ids + sum(bs for _, bs in shapes)  # and its lengths
-    on_card = devices[0].type == "cuda"
-    host = torch.empty(part * n, dtype=torch.int32, pin_memory=on_card)
+    shapes = [ids.shape for ids, _ in tiles]
+    n_ids, part = wave_layout(shapes, n)
+    host = wave_buffer(shapes, n, devices[0].type == "cuda")
     buf = host.numpy()
-    outs = []
-    for k, (dev, stream) in enumerate(zip(devices, streams)):
-        base = k * part
-        i, j = base, base + n_ids  # next tile's ids, lengths
-        for (ids, lengths), (L, bs) in zip(tiles, shapes):
+    for k in range(n):
+        i, j = k * part, k * part + n_ids  # next tile's ids, lengths
+        for ids, lengths in tiles:
+            L, bs = ids.shape[0], ids.shape[1] // n
             cols = slice(k * bs, (k + 1) * bs)
             buf[i : i + L * bs].reshape(L, bs)[...] = ids[:, cols]
             buf[j : j + bs] = lengths[cols]
             i += L * bs
             j += bs
+    return launch_shards(host, shapes, devices, streams, tabs, merge), host
+
+
+def launch_shards(
+    host: torch.Tensor,
+    shapes: Sequence[Tuple[int, int]],
+    devices: Sequence[torch.device],
+    streams: Sequence,
+    tabs: Dict[torch.device, Dict[str, torch.Tensor]],
+    merge: Callable,
+) -> list:
+    """The launches of a wave already laid out in ``host``
+    (:func:`dispatch_shards`' layout, tiles of ``shapes``): on a card each
+    shard's part crosses in one ``non_blocking`` copy on the shard's
+    stream and its tiles are views of the device copy; on the CPU the
+    buffer serves in place.  Returns the merges' results shard by shard
+    (``[k * len(shapes) + t]``)."""
+    n = len(devices)
+    n_ids, part = wave_layout(shapes, n)
+    outs = []
+    for k, (dev, stream) in enumerate(zip(devices, streams)):
         with on_stream(stream):
-            flat = host[base : base + part].to(dev, non_blocking=True)
+            flat = host[k * part : (k + 1) * part].to(dev, non_blocking=True)
             i, j = 0, n_ids
-            for L, bs in shapes:
+            for L, B in shapes:
+                bs = B // n
                 outs.append(merge(tabs[dev], flat[i : i + L * bs].view(L, bs), flat[j : j + bs]))
                 i += L * bs
                 j += bs
-    return outs, host
+    return outs
 
 
-def fetch_shards(outs: Sequence, n_tiles: int, streams: Sequence) -> List[Tuple[np.ndarray, np.ndarray]]:
-    """The ``(out_ids, out_n)`` of :func:`dispatch_shards` back on the host:
-    one ``torch.cat`` and one device-to-host copy per shard, on the
-    shard's stream (queued after its kernels, which are queued after its
-    upload), then each tile's shards side by side.  Returns one
-    ``(ids [L, B], n [B])`` pair of arrays per tile."""
-    shards = []
+def queue_fetch(outs: Sequence, n_tiles: int, streams: Sequence, back: torch.Tensor) -> list:
+    """Queue the ``(out_ids, out_n)`` of :func:`launch_shards` back to the
+    host right after the launches: per shard, one ``torch.cat`` and one
+    copy into that shard's part of ``back`` (:func:`wave_buffer` of the
+    same tiles), on the shard's stream.  On a card the copy is
+    ``non_blocking`` into page-locked memory and is followed by an event
+    recorded on that stream, so a wave is ready when its own kernels and
+    copies are, whatever was queued after it; on the CPU the copy is made
+    here.  Returns each shard's event (None on the CPU) for
+    :func:`read_fetch`."""
+    part = back.numel() // len(streams)
+    done = []
     for k, stream in enumerate(streams):
-        part = outs[k * n_tiles : (k + 1) * n_tiles]
+        tiles = outs[k * n_tiles : (k + 1) * n_tiles]
+        dst = back[k * part : (k + 1) * part]
         with on_stream(stream):
-            shards.append(
-                torch.cat([o.reshape(-1) for o, _ in part] + [c for _, c in part]).cpu().numpy()
-            )
-    n = len(shards)
-    tiles, off = [], 0
-    for o, _ in outs[:n_tiles]:
-        L, bs = o.shape
-        tiles.append(
-            np.concatenate([s[off : off + L * bs].reshape(L, bs) for s in shards], axis=1)
-            if n > 1
-            else shards[0][off : off + L * bs].reshape(L, bs)
+            flat = torch.cat([o.reshape(-1) for o, _ in tiles] + [c for _, c in tiles])
+            if stream is None:
+                dst.copy_(flat)
+                done.append(None)
+            else:
+                dst.copy_(flat, non_blocking=True)
+                event = torch.cuda.Event()
+                event.record(stream)
+                done.append(event)
+    return done
+
+
+def read_fetch(
+    back: torch.Tensor, done: Sequence, shapes: Sequence[Tuple[int, int]]
+) -> List[Tuple[np.ndarray, np.ndarray]]:
+    """Wait for each shard's copy of :func:`queue_fetch` (one event
+    synchronize per shard on a card), then each tile's shards side by
+    side.  Returns one ``(ids [L, B], n [B])`` pair of arrays per tile of
+    ``shapes``, views of ``back`` on one shard."""
+    for event in done:
+        if event is not None:
+            event.synchronize()
+    n = len(done)
+    n_ids, part = wave_layout(shapes, n)
+    shards = [back[k * part : (k + 1) * part].numpy() for k in range(n)]
+    out, off, cnt = [], 0, n_ids
+    for L, B in shapes:
+        bs = B // n
+        blocks = [s[off : off + L * bs].reshape(L, bs) for s in shards]
+        counts = [s[cnt : cnt + bs] for s in shards]
+        out.append(
+            (np.concatenate(blocks, axis=1), np.concatenate(counts)) if n > 1 else (blocks[0], counts[0])
         )
         off += L * bs
-    out = []
-    for ids, (_, c) in zip(tiles, outs[:n_tiles]):
-        bs = c.shape[0]
-        out.append((ids, np.concatenate([s[off : off + bs] for s in shards])))
-        off += bs
+        cnt += bs
     return out
 
 

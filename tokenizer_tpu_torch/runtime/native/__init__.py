@@ -28,12 +28,13 @@ __all__ = [
     "SCAN_COUNTERS",
     "scan_counters",
     "scan_report",
+    "pack_span_tiles",
 ]
 
 _SRC_DIR = Path(__file__).resolve().parent
 #: presplit.cpp's tt_abi_version(): a library that reports another is
 #: not loaded (the native path is then off).
-ABI_VERSION = 12
+ABI_VERSION = 13
 _LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
 _TRIED = False
@@ -386,6 +387,23 @@ def _load() -> Optional[ctypes.CDLL]:
         ]
         if lib.tt_abi_version() != ABI_VERSION:
             return None
+        lib.tt_pack_span_tiles.restype = ctypes.c_int
+        lib.tt_pack_span_tiles.argtypes = [
+            ctypes.c_void_p,  # buf
+            ctypes.c_int64,  # buf_len
+            ctypes.c_void_p,  # starts
+            ctypes.c_void_p,  # ends
+            ctypes.c_int64,  # n_pieces
+            ctypes.c_void_p,  # byte_to_id
+            ctypes.c_void_p,  # tile_l
+            ctypes.c_void_p,  # tile_b
+            ctypes.c_void_p,  # tile_n
+            ctypes.c_int32,  # n_tiles
+            ctypes.c_void_p,  # piece_idx
+            ctypes.c_int32,  # n_shards
+            ctypes.c_void_p,  # out
+            ctypes.c_int64,  # out_len
+        ]
         _LIB = lib
         return _LIB
 
@@ -1201,6 +1219,76 @@ def gather_bytes_batch(
     if w < 0:
         raise RuntimeError("tt_gather_bytes_batch overflow")
     return out[:w], text_offs
+
+
+def pack_span_tiles(
+    buf,
+    starts: np.ndarray,
+    ends: np.ndarray,
+    byte_to_id: np.ndarray,
+    tiles: np.ndarray,
+    piece_idx: np.ndarray,
+    n_shards: int,
+    out: np.ndarray,
+) -> None:
+    """Write a span wave's tiles into ``out``, the wave's int32 upload
+    buffer, in ``parallel.encode_step``'s shard-major layout (for each
+    shard, each tile's ``[L, B/n_shards]`` ids block, then each tile's
+    lengths; padding -1 and 0).
+
+    Piece i is ``buf[starts[i]:ends[i]]``.  ``tiles`` is ``[n_tiles, 3]``:
+    each tile's L, B and live columns; ``piece_idx`` is every tile's
+    column -> piece map, concatenated.  Raises where the library lacks the
+    packer, and on a plan, span or buffer that does not fit: no other
+    packer stands in.
+    """
+    lib = _load()
+    fn = getattr(lib, "tt_pack_span_tiles", None) if lib is not None else None
+    if fn is None:
+        raise RuntimeError(
+            f"the native library has no tt_pack_span_tiles (ABI {ABI_VERSION}); "
+            "the span route packs only there"
+        )
+    if not isinstance(buf, np.ndarray):
+        buf = np.frombuffer(buf, dtype=np.uint8)
+    if buf.dtype != np.uint8 or buf.ndim != 1 or not buf.flags.c_contiguous:
+        raise ValueError("buf must be contiguous bytes")
+    starts = np.ascontiguousarray(starts, dtype=np.int64)
+    ends = np.ascontiguousarray(ends, dtype=np.int64)
+    byte_to_id = np.ascontiguousarray(byte_to_id, dtype=np.int32)
+    tiles = np.ascontiguousarray(tiles, dtype=np.int32).reshape(-1, 3)
+    piece_idx = np.ascontiguousarray(piece_idx, dtype=np.int64)
+    if starts.shape != ends.shape or starts.ndim != 1:
+        raise ValueError("starts and ends must be 1-D and of one length")
+    if byte_to_id.shape != (256,):
+        raise ValueError("byte_to_id must have 256 entries")
+    if piece_idx.size != int(tiles[:, 2].sum()):
+        raise ValueError(f"piece_idx has {piece_idx.size} columns, the tiles {int(tiles[:, 2].sum())}")
+    if out.dtype != np.int32 or out.ndim != 1 or not (out.flags.c_contiguous and out.flags.writeable):
+        raise ValueError("out must be a writable contiguous 1-D int32 array")
+    lt, bt, nt = (np.ascontiguousarray(tiles[:, j]) for j in range(3))
+    rc = fn(
+        buf.ctypes.data_as(ctypes.c_void_p),
+        buf.size,
+        starts.ctypes.data_as(ctypes.c_void_p),
+        ends.ctypes.data_as(ctypes.c_void_p),
+        starts.size,
+        byte_to_id.ctypes.data_as(ctypes.c_void_p),
+        lt.ctypes.data_as(ctypes.c_void_p),
+        bt.ctypes.data_as(ctypes.c_void_p),
+        nt.ctypes.data_as(ctypes.c_void_p),
+        len(tiles),
+        piece_idx.ctypes.data_as(ctypes.c_void_p),
+        n_shards,
+        out.ctypes.data_as(ctypes.c_void_p),
+        out.size,
+    )
+    if rc != 0:
+        raise ValueError(
+            "tt_pack_span_tiles: "
+            + ("a tile shape or the buffer's size" if rc == -1 else "a piece or span")
+            + f" does not fit the plan ({rc})"
+        )
 
 
 def backfill_patches(

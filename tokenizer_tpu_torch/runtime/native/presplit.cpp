@@ -2587,6 +2587,78 @@ int64_t tt_gather_bytes_batch(const uint8_t* blob, const int64_t* offs,
   return last;
 }
 
+// Packs a span wave's tiles for the merge kernel straight into the
+// wave's int32 upload buffer, in parallel/encode_step.py's shard-major
+// layout: for each of n_shards shards, each tile's [L, B/n_shards] ids
+// block (row-major, the shard's columns k*B/n .. (k+1)*B/n), then each
+// tile's B/n lengths.  Tile t is tile_l[t] rows by tile_b[t] columns, of
+// which the first tile_n[t] carry pieces: column c of tile t is piece
+// piece_idx[sum(tile_n[:t]) + c], the bytes buf[starts[p] : ends[p]].
+// A live cell holds byte_to_id of its byte, every other cell -1, a
+// padding column's length 0: each cell is written once, row by row.
+// Returns 0, -1 on a malformed plan (a tile shape, a width that does not
+// split into n_shards, out_len), -2 on a piece index, span or length that
+// does not fit; out is then partly written.
+int tt_pack_span_tiles(const uint8_t* buf, int64_t buf_len,
+                       const int64_t* starts, const int64_t* ends,
+                       int64_t n_pieces, const int32_t* byte_to_id,
+                       const int32_t* tile_l, const int32_t* tile_b,
+                       const int32_t* tile_n, int32_t n_tiles,
+                       const int64_t* piece_idx, int32_t n_shards,
+                       int32_t* out, int64_t out_len) {
+  if (n_shards < 1 || n_tiles < 0) return -1;
+  int64_t n_ids = 0, part = 0, n_cols = 0;
+  for (int32_t t = 0; t < n_tiles; t++) {
+    int64_t L = tile_l[t], B = tile_b[t], nr = tile_n[t];
+    if (L < 1 || B < 1 || B % n_shards || nr < 0 || nr > B) return -1;
+    n_ids += L * (B / n_shards);
+    part += L * (B / n_shards) + B / n_shards;
+    n_cols += nr;
+  }
+  if (part * n_shards != out_len) return -1;
+  for (int64_t c = 0; c < n_cols; c++) {
+    int64_t p = piece_idx[c];
+    if (p < 0 || p >= n_pieces) return -2;
+    if (starts[p] < 0 || ends[p] < starts[p] || ends[p] > buf_len) return -2;
+  }
+  std::vector<const uint8_t*> src;
+  std::vector<int32_t> len;
+  for (int32_t k = 0; k < n_shards; k++) {
+    int32_t* ids = out + k * part;
+    int32_t* lens = ids + n_ids;
+    const int64_t* pidx = piece_idx;
+    for (int32_t t = 0; t < n_tiles; t++) {
+      int64_t L = tile_l[t], bs = tile_b[t] / n_shards, nr = tile_n[t];
+      int64_t c0 = k * bs;
+      int64_t live = nr > c0 ? std::min(bs, nr - c0) : 0;
+      src.resize((size_t)live);
+      len.resize((size_t)live);
+      int64_t rows = 0;  // the longest live column: rows below it are padding
+      for (int64_t c = 0; c < live; c++) {
+        int64_t p = pidx[c0 + c];
+        int64_t n = ends[p] - starts[p];
+        if (n > L) return -2;
+        src[c] = buf + starts[p];
+        len[c] = (int32_t)n;
+        lens[c] = (int32_t)n;
+        rows = std::max(rows, n);
+      }
+      for (int64_t c = live; c < bs; c++) lens[c] = 0;
+      for (int64_t r = 0; r < rows; r++) {
+        int32_t* row = ids + r * bs;
+        for (int64_t c = 0; c < live; c++)
+          row[c] = r < len[c] ? byte_to_id[src[c][r]] : -1;
+        for (int64_t c = live; c < bs; c++) row[c] = -1;
+      }
+      std::fill(ids + rows * bs, ids + L * bs, -1);
+      ids += L * bs;
+      lens += bs;
+      pidx += nr;
+    }
+  }
+  return 0;
+}
+
 // Batched token-stream assembly: one call for a whole encode_batch.
 // Segment k's pieces are uid_buf[seg_offs[k] : seg_offs[k]+seg_counts[k]];
 // each uid maps through uid_rows (identity when uid_rows == null) to a
@@ -2863,6 +2935,6 @@ int64_t tt_bpe_encode_batch(const uint8_t* blob, const int64_t* starts,
   return err.load(std::memory_order_relaxed);
 }
 
-int tt_abi_version(void) { return 12; }
+int tt_abi_version(void) { return 13; }
 
 }  // extern "C"
