@@ -39,7 +39,11 @@ result line):
    streams through ``encode_batch_stream`` in 256-document chunks and must
    equal, document for document, a host-routed tokenizer of the same
    vocabulary (every wave merged by the native C++ heap merge, no card),
-   and must have merged pieces over 512 bytes on the card;
+   and must have merged pieces over 512 bytes on the card, every wave
+   forced onto the card and again at default routing, whose router line
+   (split calls a chunk, fused pieces, ``defer_long``, device waves, K1
+   launches, ``device_long_pieces``) must show one split call a chunk and
+   long pieces merged on the card;
    bulk trims and decode are checked on 64 fresh documents;
 6. probe experiments, on the three tables of phase 3 (the same table
    builds): the row-copy (K3, each pair's probe window copied in one
@@ -1028,25 +1032,43 @@ def case_interleaved(device, host) -> str:
 
 def case_flip(device, host) -> str:
     """Chunks deferred on the card, each followed by a host-routed emit chunk
-    that repeats its pieces (the router set as the JAX tests set it)."""
+    that repeats its pieces, at default routing: each card chunk carries 64
+    fresh letter runs of 700 bytes, which the scan leaves to a wave that
+    the router sends to the card, and fresh words, which it fuses.  Each
+    emit chunk repeats 8 of the runs while that wave is in flight: holes
+    on its uids, chained behind it (``must_defer``)."""
     import numpy as np
 
     import tokenizer_tpu_torch as tt
 
     tok = tt.create_by_encoder_name("cl100k_synth", allow_fetch=False, device=device, mesh=None)
-    tok._dev_pp, tok._host_pp, tok._news_per_byte = 1e-12, 1.0, 1.0
+    chained = []
+    emit = tok._native_encode_emit
+
+    def spy(*args, **kw):
+        out = emit(*args, **kw)
+        if kw.get("must_defer") and isinstance(out, tuple) and out[0] == "emit_deferred" \
+                and out[-1] is None:
+            chained.append(len(out[5][0]))
+        return out
+
+    tok._native_encode_emit = spy
     rng = np.random.default_rng(94)
     batches = []
     for _ in range(3):
         words = fresh_words(rng, 1400)
-        batches.append([" ".join(words)])
-        batches.append([" ".join(words[:40]) + " fresh bits"])
+        runs = ["".join(map(chr, 97 + rng.integers(0, 26, size=700))) for _ in range(64)]
+        batches.append([" ".join(words + runs)])
+        batches.append([" ".join(words[:40] + runs[:8]) + " fresh bits"])
     got = [ids for b in tok.encode_batch_stream(iter(batches)) for ids in b]
     assert_same(got, [b[0] for b in batches], host, "flip stream")
     st = tok.stats
     check(st.device_waves >= 3 and st.fused_pieces > 0,
           f"flip stream: device_waves {st.device_waves}, fused_pieces {st.fused_pieces}")
-    return f"{st.device_waves} device waves, {st.fused_pieces} pieces fused on the host"
+    check(len(chained) == 3 and min(chained) >= 8,
+          f"flip stream: holes on an in-flight wave, by chunk: {chained}")
+    return (f"{st.device_waves} device waves, {st.fused_pieces} pieces fused on the host, "
+            f"{chained} holes on in-flight waves")
 
 
 def case_threads(device, host) -> str:
@@ -1287,6 +1309,21 @@ def main() -> int:
     check(st["device_long_pieces"] > 0,
           f"cl100k_synth stream merged no piece over {BUCKETS[-1]} bytes on the card")
 
+    # The same cold stream at default routing: the card's router.
+    routed = tt.create_by_encoder_name("cl100k_synth", allow_fetch=False, device=device)
+    routed._ensure_device()
+    before = merge_cuda.LAUNCHES
+    t0 = time.perf_counter()
+    routed_out = [ids for batch in routed.encode_batch_stream(chunks) for ids in batch]
+    torch.cuda.synchronize()
+    routed_s = time.perf_counter() - t0
+    rst = routed.stats.as_dict()
+    routed_launches = merge_cuda.LAUNCHES - before
+    check(rst["scan_calls"] == len(chunks),
+          f"the default-routed stream made {rst['scan_calls']} split calls for {len(chunks)} chunks")
+    check(rst["device_long_pieces"] > 0 and routed_launches > 0,
+          "the default-routed stream merged no long piece on the card")
+
     ref = host_reference("cl100k_synth")
     t0 = time.perf_counter()
     want = ref.encode_batch(docs)
@@ -1295,9 +1332,19 @@ def main() -> int:
     check(len(out) == len(docs), f"stream gave {len(out)} outputs for {len(docs)} documents")
     bad = [i for i, (g, w) in enumerate(zip(out, want)) if not np.array_equal(g, w)]
     check(not bad, f"cl100k_synth: {len(bad)} documents differ, first {bad[:5]}")
+    bad = [i for i, (g, w) in enumerate(zip(routed_out, want)) if not np.array_equal(g, w)]
+    check(len(routed_out) == len(want) and not bad,
+          f"cl100k_synth default-routed: {len(bad)} documents differ, first {bad[:5]}")
     n_tokens = sum(len(w) for w in want)
-    print(f"phase 5 cl100k_synth stream == host reference on {len(docs)} docs, {nbytes} bytes, "
-          f"{n_tokens} tokens", flush=True)
+    print(f"phase 5 cl100k_synth stream (forced and default-routed) == host reference on "
+          f"{len(docs)} docs, {nbytes} bytes, {n_tokens} tokens", flush=True)
+    print(f"phase 5 router (default routing, cold encode_batch_stream, {len(chunks)} chunks): "
+          f"split calls a chunk {rst['scan_calls'] / len(chunks):g}, fused pieces "
+          f"{rst['fused_pieces']}, defer_long {rst['scan_defer_long']}, device waves "
+          f"{rst['device_waves']}, K1 launches {routed_launches}, device_long_pieces "
+          f"{rst['device_long_pieces']}, host_wave_pieces {rst['host_wave_pieces']}, "
+          f"device_blocking_s {rst['device_blocking_s']:.4f}, "
+          f"{nbytes / routed_s / 1e6:.3f} MB/s; card {smi}", flush=True)
 
     fresh = gen_corpus(0.3, args.seed + 2, seed_text)[:64]
     budgets = [int(b) for b in rng.integers(1, 2000, size=len(fresh))]

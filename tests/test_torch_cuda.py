@@ -727,6 +727,42 @@ def test_long_pieces_merge_on_card_vs_tiktoken(cuda, entry, lib_rs_text):
     assert tok.stats.host_fallback_pieces == 0 and tok.stats.device_long_pieces == len(long)
 
 
+def test_default_router_scans_each_chunk_once_and_sends_long_pieces_to_k1(cuda, lib_rs_text):
+    """The card's router at default routing, as ``chip_smoke.py`` phase 5
+    checks it: a cold ``encode_batch_stream`` of gen_corpus documents (their
+    CJK runs) in 64-document chunks makes one native split call a chunk,
+    fuses the short first-seen pieces, leaves those over ``gpu.L_HOST`` to
+    the chunk's wave, which merges on the host if it holds at most
+    ``gpu.HOST_WAVE_MAX`` pieces and on K1 otherwise (``device_long_pieces``
+    > 0, launches), merges each piece once, and its ids equal Rust
+    tiktoken's."""
+    pytest.importorskip("tiktoken")
+    require_vocab("cl100k_synth")
+    sys.path.insert(0, str(REPO / "tools"))
+    import synth_goldens
+
+    import tokenizer_tpu_torch as tt
+
+    rust = synth_goldens.rust_encoding("cl100k_synth")
+    tok = tt.create_by_encoder_name("cl100k_synth", allow_fetch=False, device="cuda")
+    docs = chip_smoke.gen_corpus(1.0, 3, lib_rs_text)
+    chunks = [docs[i : i + 64] for i in range(0, len(docs), 64)]
+    before = merge_cuda.LAUNCHES
+    out = [ids for b in tok.encode_batch_stream(chunks) for ids in b]
+    torch.cuda.synchronize()
+    st = tok.stats.as_dict()
+    assert st["scan_calls"] == len(chunks)
+    assert st["device_long_pieces"] > 0 and merge_cuda.LAUNCHES > before
+    assert st["fused_pieces"] > 0 and st["scan_defer_long"] > 0
+    in_waves = st["host_wave_pieces"] - st["fused_pieces"]  # merged in host waves
+    assert st["device_pieces"] > 0 and st["scan_defer_wide"] == 0
+    assert st["device_pieces"] + in_waves == st["scan_defer_long"] + st["scan_defer_capacity"]
+    assert st["scan_bpe_pieces"] == in_waves  # the host's batched merge took only those
+    assert len(out) == len(docs)
+    for d, ids in zip(docs, out):
+        assert list(ids) == rust.encode_ordinary(d), repr(d[:80])
+
+
 @pytest.mark.parametrize("case", list(chip_smoke.IN_FLIGHT))
 def test_parity_in_flight_on_card(cuda, case):
     """chip_smoke.py phase 9 (c) on the card: each case's waves really are in

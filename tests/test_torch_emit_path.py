@@ -4,10 +4,13 @@ The counterpart of ``tests/test_emit_path.py``, case for case: each
 test's docstring names its JAX test.  ``device="cpu"`` with every wave
 forced onto the plain PyTorch merge (``_host_pp = inf``,
 ``_host_wave_max = 0``), so first-seen pieces come back as holes that a
-device wave fills, unless the JAX test asserts a routing decision; the
-stream router tests set only ``_dev_pp``, ``_host_pp`` and
-``_news_per_byte`` as the JAX ones do.  Ids must equal the port's host
-``TikTokenizer`` exactly.
+device wave fills, unless the JAX test asserts a routing decision.  The
+stream router tests keep default routing and steer the router by what
+it reads, the pieces' lengths and their number: where the JAX tests
+make the device cheap, the port's chunk carries 64 first-seen pieces
+longer than ``gpu.L_HOST`` (:func:`_device_leaning`), which leave the
+fused scan for one wave, larger than ``gpu.HOST_WAVE_MAX``, that goes
+to the merge.  Ids must equal the port's host ``TikTokenizer`` exactly.
 """
 
 from __future__ import annotations
@@ -48,13 +51,37 @@ def toks(vocab):
     return _gpu(vocab), _host(vocab)
 
 
-def _device_leaning(tok):
-    """The JAX tests' device-favouring router state: a device wave measured
-    far cheaper than a host wave, and a high first-seen estimate."""
-    tok._dev_pp = 1e-12
-    tok._host_pp = 1.0
-    tok._news_per_byte = 1.0
-    return tok
+def _device_leaning(tag, n: int = 64) -> str:
+    """What makes the port's router choose the device where the JAX tests
+    set a device-favouring state: ``n`` first-seen letter runs of 700
+    bytes, each one piece longer than ``gpu.L_HOST`` (so the scan leaves it
+    to the chunk's wave); more than ``gpu.HOST_WAVE_MAX`` of them send the
+    wave to the merge.  ``_device_leaning(tag, k)`` repeats the first ``k``
+    runs of ``_device_leaning(tag)``."""
+    runs = []
+    for j in range(n):
+        h = hashlib.blake2b(f"{tag}:{j}".encode(), digest_size=64).digest() * 11
+        runs.append("".join(chr(97 + b % 26) for b in h[:700]))
+    return " " + " ".join(runs)
+
+
+def _chained(tok) -> list:
+    """Watch ``tok``'s stream: for each chunk scanned while an earlier
+    chunk's wave was still in flight whose scan came back deferred with
+    holes and no wave of its own (``must_defer`` chaining: the holes
+    reference the pending wave's uids), its hole count."""
+    chained = []
+    emit = tok._native_encode_emit
+
+    def spy(*args, **kw):
+        out = emit(*args, **kw)
+        if kw.get("must_defer") and isinstance(out, tuple) and out[0] == "emit_deferred" \
+                and out[-1] is None:
+            chained.append(len(out[5][0]))
+        return out
+
+    tok._native_encode_emit = spy
+    return chained
 
 
 def _word(tag, j):
@@ -190,7 +217,7 @@ def test_emit_thread_storm(vocab, monkeypatch):
 def test_emit_device_route_no_fuse(toks):
     """test_emit_path.py::test_emit_device_route_no_fuse"""
     tok, host = toks
-    tok._should_fuse = lambda n: False
+    tok._scan_defer_len = lambda: None
     for ci in range(4):
         texts = [" ".join(_word(f"d{ci}:{k}", j) for j in range(150)) for k in range(4)]
         for g, t in zip(tok.encode_batch(texts), texts):
@@ -203,36 +230,49 @@ def test_emit_device_route_no_fuse(toks):
 
 def test_stream_router_flip_dev_to_emit(vocab):
     """test_emit_path.py::test_stream_router_flip_dev_to_emit"""
-    tok, host = _device_leaning(_gpu(vocab, force=False)), _host(vocab)
-    big = [" ".join(_word("flip", j) for j in range(1500))]  # a device wave, deferred
-    rep = [" ".join(_word("flip", j) for j in range(40)) + " fresh bits"]  # host, emit
+    tok, host = _gpu(vocab, force=False), _host(vocab)
+    chained = _chained(tok)
+    # A device wave, deferred: the long runs; the words fuse.
+    big = [" ".join(_word("flip", j) for j in range(1500)) + _device_leaning("flip")]
+    # Repeats chunk 1's words and 8 of its long runs (holes on the
+    # in-flight wave), with a couple of new words that fuse: emit.
+    rep = [" ".join(_word("flip", j) for j in range(40)) + _device_leaning("flip", 8)
+           + " fresh bits"]
     got = [ids for b in tok.encode_batch_stream(iter([big, rep])) for ids in b]
     assert list(got[0]) == host.encode(big[0])
     assert list(got[1]) == host.encode(rep[0])
     assert tok.stats.device_pieces > 0, "chunk 1 never took the device"
     assert tok.stats.fused_pieces > 0, "chunk 2 never took the host"
+    assert len(chained) == 1 and chained[0] >= 8, f"chunk 2's holes on chunk 1's wave: {chained}"
 
 
 def test_stream_alternating_routes_chain(vocab):
     """test_emit_path.py::test_stream_alternating_routes_chain"""
-    tok, host = _device_leaning(_gpu(vocab, force=False)), _host(vocab)
+    tok, host = _gpu(vocab, force=False), _host(vocab)
+    chained = _chained(tok)
     batches = []
     for r in range(3):
-        batches.append([" ".join(_word(f"r{r}", j) for j in range(1400))])
-        batches.append([" ".join(_word(f"r{r}", j) for j in range(30)) + " tail bit"])
+        batches.append([" ".join(_word(f"r{r}", j) for j in range(1400)) + _device_leaning(f"r{r}")])
+        # Holes on the previous chunk's in-flight wave: 8 of its long runs.
+        batches.append([" ".join(_word(f"r{r}", j) for j in range(30)) + _device_leaning(f"r{r}", 8)
+                        + " tail bit"])
     got = [ids for b in tok.encode_batch_stream(iter(batches)) for ids in b]
     for i, (g, b) in enumerate(zip(got, batches)):
         assert list(g) == host.encode(b[0]), f"chunk {i}"
     assert tok.stats.device_waves >= 3
+    assert len(chained) == 3 and min(chained) >= 8, f"holes on in-flight waves: {chained}"
 
 
 def test_stream_patch_overflow_with_deferred_wave(vocab, monkeypatch):
-    """test_emit_path.py::test_stream_patch_overflow_with_deferred_wave"""
-    tok, host = _device_leaning(_gpu(vocab, force=False)), _host(vocab)
+    """test_emit_path.py::test_stream_patch_overflow_with_deferred_wave.  The
+    first chunk's 64 long runs are its holes (under the cap) and its wave
+    is deferred; the second repeats them twice while that wave is in
+    flight: 128 holes overflow the cap."""
+    tok, host = _gpu(vocab, force=False), _host(vocab)
     ctx_cls = type(tok._native.SplitContext(1))
-    monkeypatch.setattr(ctx_cls, "_PATCH_CAP", 8)
-    big = [" ".join(_word("ov", j) for j in range(1500))]
-    rep = [" ".join(_word("ov", j) for j in range(200))]
+    monkeypatch.setattr(ctx_cls, "_PATCH_CAP", 100)
+    big = [" ".join(_word("ov", j) for j in range(1500)) + _device_leaning("ov")]
+    rep = [" ".join(_word("ov", j) for j in range(200)) + _device_leaning("ov") * 2]
     got = [ids for b in tok.encode_batch_stream(iter([big, rep])) for ids in b]
     assert list(got[0]) == host.encode(big[0])
     assert list(got[1]) == host.encode(rep[0])

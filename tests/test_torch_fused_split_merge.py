@@ -6,8 +6,9 @@ the port has no such switch, so each case routes every wave of a
 ``GpuTokenizer(device="cpu")`` to the host C++ merge with the tokenizer's
 own threshold (``_host_wave_max``), as ``chip_smoke.host_reference`` does.
 Every split then goes through the fused call
-(``tt_ctx_split_merge_batch``, ``GpuTokenizer._should_fuse``), which is the
-route default routing takes for small waves on the card too.  Token ids
+(``tt_ctx_split_merge_batch``; ``GpuTokenizer._scan_defer_len`` fuses
+pieces of at most ``gpu.L_HOST`` bytes, as at default routing on the
+card, and leaves longer ones to a wave that the host merges).  Token ids
 must equal the JAX package's host engine exactly.
 """
 

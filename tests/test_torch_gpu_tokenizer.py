@@ -220,8 +220,9 @@ def test_device_merge_of_one_tile(gpt2_pair):
 
 
 def test_small_waves_stay_on_host_by_default(gpt2_pair):
-    """Without forcing, waves of at most _HOST_WAVE_MAX pieces merge on
-    the host, as in the JAX package."""
+    """Without forcing, a few short first-seen pieces merge on the host
+    (in the scan: at most ``gpu.L_HOST`` bytes each), as small waves do in
+    the JAX package."""
     require_vocab("gpt2")
     tok = tt.create_by_encoder_name("gpt2", allow_fetch=False, device="cpu")
     _tok, host = gpt2_pair

@@ -23,7 +23,11 @@ Then a host-routed tokenizer encodes the documents at each thread count
 (``split_emit_batch``, first-seen pieces merged in the scan), and its ids
 must equal Rust tiktoken's.  Last, ``tests/intern_stress.cpp`` drives the
 same stress through a ThreadSanitizer build of the port's
-``presplit.cpp``, which must report nothing.
+``presplit.cpp``, which must report nothing, and then the fused calls
+(``tt_ctx_split_merge_batch`` and ``tt_ctx_split_emit_batch``) at 8
+threads, with ``defer_len`` 0 and 6 and a row matrix that holds every
+first-seen piece or only part of them, so that the workers race for the
+row matrix's tail (``FuseState::row_next``).
 """
 
 from __future__ import annotations
@@ -196,7 +200,8 @@ def test_ids_equal_tiktoken(cases, threads, monkeypatch):
 
 def test_thread_sanitizer_finds_no_race():
     """``tests/intern_stress.cpp`` against a ThreadSanitizer build of the
-    port's ``presplit.cpp`` (built under ``build/tsan/``)."""
+    port's ``presplit.cpp`` (built under ``build/tsan/``): the unfused
+    split, then the fused calls with and without ``defer_len``."""
     cxx = os.environ.get("CXX", "g++")
     if shutil.which(cxx) is None:
         pytest.skip(f"no {cxx}")
@@ -223,3 +228,4 @@ def test_thread_sanitizer_finds_no_race():
     assert "ThreadSanitizer" not in run.stderr, run.stderr[-4000:]
     assert run.returncode == 0, (run.stdout, run.stderr[-4000:])
     assert run.stdout.startswith("ok calls 12 "), run.stdout
+    assert " fused_calls 8 " in run.stdout, run.stdout

@@ -47,6 +47,7 @@ FIRST_SEEN = (
     "gen_copies", "gen_copy_bytes", "gen_copy_s",
     "defer_off", "defer_capacity", "defer_wide", "patches",
     "bpe_calls", "bpe_pieces", "bpe_bytes", "bpe_merge_s", "bpe_call_s", "bpe_longest_s",
+    "defer_long",
 )
 #: counts that follow from the input and the route alone, not from the
 #: thread count (holes, staged resolves and lock acquisitions depend on
@@ -55,10 +56,10 @@ DETERMINED = (
     "calls", "inserts",
     "fused_short", "fused_short_bytes", "fused_long", "fused_long_bytes",
     "gen_copies", "gen_copy_bytes", "defer_off", "defer_capacity", "defer_wide",
-    "bpe_calls", "bpe_pieces", "bpe_bytes",
+    "bpe_calls", "bpe_pieces", "bpe_bytes", "defer_long",
 )
 SPLITS = ("split_batch", "split_merge_batch", "split_emit_batch")
-DEFERRED = ("defer_off", "defer_capacity", "defer_wide")
+DEFERRED = ("defer_off", "defer_capacity", "defer_wide", "defer_long")
 
 
 def make_tok(route: str):
@@ -160,11 +161,13 @@ CASES = [(s, r) for s in SEEDS for r in ROUTES]
 
 
 def test_the_native_library_is_abi_13():
-    """The library the port loads is the one whose calls take counters and
-    that packs span waves: a version mismatch would quietly turn the native
-    path off."""
+    """The library the port loads is the one whose calls take counters, that
+    packs span waves and whose fused calls take ``defer_len`` (ABI 14, which
+    appends the ``defer_long`` counter to ABI 13's): a version mismatch
+    would quietly turn the native path off."""
     assert native.available()
-    assert native._load().tt_abi_version() == native.ABI_VERSION == 13
+    assert native._load().tt_abi_version() == native.ABI_VERSION == 14
+    assert SCAN_COUNTERS[-1] == "defer_long"
     assert len(SCAN_COUNTERS) == len(set(SCAN_COUNTERS)) == native.scan_counters().size
 
 
@@ -207,8 +210,8 @@ def test_deferred_news_and_holes_are_what_the_call_returned(run, seed, route):
             total[d] += k[d]
     if route == "forced":  # the device route's scan fuses nothing
         assert total["defer_off"] == run(seed, route)["stats"]["scan_inserts"] > 0
-    if route == "host":
-        assert total["defer_off"] == 0
+    else:  # the fused scan leaves the pieces over L_HOST to the wave
+        assert total["defer_off"] == 0 and total["defer_long"] > 0
 
 
 @pytest.mark.parametrize("seed,route", CASES)

@@ -20,6 +20,7 @@ from torch_cpu import forced, one_torch_thread  # noqa: F401
 
 import tokenizer_tpu_torch as tt
 from tokenizer_tpu_torch.engine import TikTokenizer
+from tokenizer_tpu_torch import gpu
 from tokenizer_tpu_torch.gpu import GpuTokenizer
 from tokenizer_tpu_torch.models.registry import get_encoding_spec
 from tokenizer_tpu_torch.ops import merge_cuda
@@ -233,7 +234,9 @@ def test_wave_cache_overflow_falls_back_per_tile(vocab, lib_rs_text, monkeypatch
     """test_tpu_pipeline.py::test_wave_cache_overflow_falls_back_per_tile.
     The port has no wave-combo jit cache (a wave is one upload and one launch
     per tile), so this holds a wave of several buckets to one merge call per
-    tile and one upload, with the ids of an unforced tokenizer."""
+    tile and one upload, with the ids of an unforced tokenizer (taken
+    first: its own long pieces go to the merge too)."""
+    (want,) = _gpu(vocab, force=False, mesh=None).encode_batch([lib_rs_text[:2000]])
     calls = []
     real = merge_cuda.merge_packed_torch
 
@@ -244,22 +247,24 @@ def test_wave_cache_overflow_falls_back_per_tile(vocab, lib_rs_text, monkeypatch
     monkeypatch.setattr(merge_cuda, "merge_packed_torch", counting)
     tok = _gpu(vocab, mesh=None)
     (ids,) = tok.encode_batch([lib_rs_text[:2000]])
-    (want,) = _gpu(vocab, force=False, mesh=None).encode_batch([lib_rs_text[:2000]])
     assert list(ids) == list(want)
     assert tok.stats.device_waves == 1 and tok.stats.device_uploads == 1
     assert len(calls) == len({shape[0] for shape in calls}) > 1
 
 
 def test_small_wave_host_router(vocab):
-    """test_tpu_pipeline.py::test_small_wave_host_router (default routing)"""
+    """test_tpu_pipeline.py::test_small_wave_host_router (default routing).
+    The tiny batch's short pieces merge on the host, in the scan; its one
+    piece longer than ``gpu.L_HOST`` (the 700-digit run) is a wave of one,
+    at most ``gpu.HOST_WAVE_MAX``, which stays on the host too."""
     tok = _gpu(vocab, force=False, mesh=None)
     host = _host_of(vocab)
     texts = ["a tiny batch with few unique pieces ⭐", "9" * 700]
     for g, t in zip(tok.encode_batch(texts), texts):
         assert list(g) == host.encode(t)
     assert tok._native is not None
-    assert tok.stats.host_wave_pieces > 0
-    assert tok.stats.device_pieces == 0
+    assert tok.stats.host_wave_pieces == tok.stats.fused_pieces + 1 > 1
+    assert tok.stats.device_pieces == 0 and tok.stats.device_waves == 0
 
 
 def test_register_new_uids_unsorted_news():
@@ -296,51 +301,73 @@ def _big_batch(salt_a: int, salt_b: int):
     ]
 
 
+def _long_runs(tag, n: int = 64) -> str:
+    """``n`` first-seen letter runs of 700 bytes: pieces longer than
+    ``gpu.L_HOST``, which the scan leaves to the chunk's wave; more than
+    ``gpu.HOST_WAVE_MAX`` of them send that wave to the merge."""
+    runs = []
+    for j in range(n):
+        h = hashlib.blake2b(f"{tag}:{j}".encode(), digest_size=64).digest() * 11
+        runs.append("".join(chr(97 + b % 26) for b in h[:700]))
+    return " " + " ".join(runs)
+
+
 def test_adaptive_wave_router_gates_on_probe(vocab):
     """test_tpu_pipeline.py::test_adaptive_wave_router_gates_on_probe.
-    The port has no channel probe: with the device measured slower than the
-    host, a wave over _host_wave_max stays on the host; with _dev_pp None it
-    goes to the merge, and its time seeds _dev_pp."""
+    The port has no channel probe and learns no cost as it runs: its rule
+    is measured on the card (``gpu.py``).  Short first-seen words merge in
+    the scan, none on the merge; 64 long runs in the same batch leave the
+    scan for a wave that goes to the merge; with fusing off
+    (``_host_pp = inf``), every first-seen piece goes to the merge."""
     tok = _gpu(vocab, force=False, mesh=None)
     host = _host_of(vocab)
-    assert tok._native is not None and tok._dev_pp is None
-    tok._dev_pp, tok._host_pp = 1.0, 1e-6  # the device measured slower
+    assert tok._native is not None and tok._host_pp == 1.0
     big = _big_batch(0, 3)
     for g, t in zip(tok.encode_batch(big), big):
         assert list(g) == host.encode(t)
     assert tok.stats.device_pieces == 0
-    assert tok.stats.host_wave_pieces > 1024
+    assert tok.stats.host_wave_pieces == tok.stats.fused_pieces > 1024
 
-    tok._dev_pp = None
+    mixed = _big_batch(4, 5)
+    mixed[0] += _long_runs("gate")
+    for g, t in zip(tok.encode_batch(mixed), mixed):
+        assert list(g) == host.encode(t)
+    assert tok.stats.device_pieces == 64 and tok.stats.device_waves == 1
+
+    tok._host_pp = float("inf")
     big2 = _big_batch(9, 14)
     for g, t in zip(tok.encode_batch(big2), big2):
         assert list(g) == host.encode(t)
     assert tok.stats.device_pieces > 1024
-    assert tok._dev_pp is not None
 
 
 def test_adaptive_router_explores_after_host_streak(vocab):
-    """test_tpu_pipeline.py::test_adaptive_router_explores_after_host_streak"""
+    """test_tpu_pipeline.py::test_adaptive_router_explores_after_host_streak.
+    The JAX router sends a wave to the device after 32 host waves to
+    re-measure it; the port's rule is a function of the wave's size alone,
+    so a streak of host waves changes nothing: before and after 40 of them
+    (each two long runs beside 20 fused words) a wave of up to
+    ``gpu.HOST_WAVE_MAX`` pieces stays on the host and a larger one goes
+    to the merge, and that wave's ids are exact."""
     tok = _gpu(vocab, force=False, mesh=None)
     host = _host_of(vocab)
     assert tok._native is not None
-    tok._dev_pp = 1.0
-    tok._host_pp = 1e-6
-    big = 2048
-    assert tok._route_wave_host(big) is True
-    tok._host_waves_since_dev = 31
-    assert tok._route_wave_host(big) is True
-    tok._host_waves_since_dev = 32
-    assert tok._route_wave_host(big) is False
-    # The exploration wave itself: a big batch takes the merge, ids equal.
+    sizes = (1, gpu.HOST_WAVE_MAX, gpu.HOST_WAVE_MAX + 1, 64)
+    route = [tok._route_wave_host(n) for n in sizes]
+    assert route == [True, True, False, False]
+    for k in range(40):
+        t = " ".join(_word(f"streak:{k}:{j}") for j in range(20)) + _long_runs(f"streak:{k}", 2)
+        (g,) = tok.encode_batch([t])
+        assert list(g) == host.encode(t)
+    assert tok.stats.device_pieces == 0 and tok.stats.fused_pieces >= 800
+    assert tok.stats.host_wave_pieces == tok.stats.fused_pieces + 80
+    assert [tok._route_wave_host(n) for n in sizes] == route
     texts = _big_batch(21, 22)
+    texts[-1] += _long_runs("streak")
     for g, t in zip(tok.encode_batch(texts), texts):
         assert list(g) == host.encode(t)
-    assert tok.stats.device_pieces > 1024
-    tok._dev_pp = 1e-9
-    tok._host_waves_since_dev = 0
-    assert tok._route_wave_host(big) is False
-    assert tok._route_wave_host(8) is True
+    # The wave may also carry words the scan deferred for row capacity.
+    assert tok.stats.device_waves == 1 and tok.stats.device_long_pieces == 64
 
 
 def test_bounded_dedup_reset(vocab):
@@ -381,7 +408,7 @@ def test_generational_dedup_no_sawtooth(vocab, mesh, fuse):
     else:
         tok = _gpu(vocab, force=not fuse, mesh=None, max_unique_rows=1600)
     if not fuse:
-        tok._should_fuse = lambda nbytes: False
+        tok._scan_defer_len = lambda: None
     host = _host_of(vocab)
     hot = [_word(f"hot:{j}") for j in range(300)]
     merges_per_chunk = []

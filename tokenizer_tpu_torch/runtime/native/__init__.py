@@ -34,7 +34,7 @@ __all__ = [
 _SRC_DIR = Path(__file__).resolve().parent
 #: presplit.cpp's tt_abi_version(): a library that reports another is
 #: not loaded (the native path is then off).
-ABI_VERSION = 13
+ABI_VERSION = 14
 _LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
 _TRIED = False
@@ -59,6 +59,7 @@ SCAN_COUNTERS = (
     "defer_off", "defer_capacity", "defer_wide",
     "patches", "staged",
     "bpe_calls", "bpe_pieces", "bpe_bytes", "bpe_merge_s", "bpe_call_s", "bpe_longest_s",
+    "defer_long",
 )
 
 
@@ -234,6 +235,7 @@ def _load() -> Optional[ctypes.CDLL]:
                 ctypes.c_int64,  # old_n_rows
                 ctypes.POINTER(ctypes.c_int64),  # n_copied (out, nullable)
                 ctypes.c_void_p,  # uid_ids (nullable [uid_cap, 8] compact)
+                ctypes.c_int64,  # defer_len
                 ctypes.c_void_p,  # counters (nullable)
             ]
         )
@@ -285,6 +287,7 @@ def _load() -> Optional[ctypes.CDLL]:
             ctypes.c_int64,  # patch_cap
             ctypes.POINTER(ctypes.c_int64),  # n_patches
             ctypes.c_void_p,  # uid_ids (nullable [uid_cap, 8] compact)
+            ctypes.c_int64,  # defer_len
             ctypes.c_void_p,  # counters (nullable)
         ]
         lib.tt_backfill_patches.restype = ctypes.c_int64
@@ -654,6 +657,7 @@ class SplitContext:
         old_gen=None,
         uid_ids: Optional[np.ndarray] = None,
         counters: Optional[np.ndarray] = None,
+        defer_len: int = 0,
     ):
         """:meth:`split_batch` + fused first-seen merge (cold path).
 
@@ -673,6 +677,9 @@ class SplitContext:
         pieces probe it lock-free and copy already-resolved rows instead
         of re-merging (generational eviction); ``n_copied`` counts the
         copies.
+
+        ``defer_len`` (0: none) sends every first-seen piece longer than
+        it to ``news`` unmerged (the scanner's ``defer_long`` counter).
         """
         if nthreads <= 0:
             nthreads = default_threads()
@@ -747,6 +754,7 @@ class SplitContext:
             *old_args,
             ctypes.byref(n_copied),
             _uid_ids_ptr(uid_ids, uid_rows),
+            int(defer_len),
             _counters_ptr(counters),
         )
         if rc < 0:
@@ -832,6 +840,7 @@ class SplitContext:
         fuse: bool = True,
         uid_ids: Optional[np.ndarray] = None,
         counters: Optional[np.ndarray] = None,
+        defer_len: int = 0,
     ):
         """Fused scan+merge+EMIT: bytes -> token ids in ONE native pass.
 
@@ -844,6 +853,8 @@ class SplitContext:
         compacts.  REQUIRES ``uid_rows`` slots for unassigned uids to
         hold -1 (the emit path reads them concurrently under the
         acquire/release protocol; garbage >= 0 would alias rows).
+        ``defer_len`` as in :meth:`split_merge_batch`: with ``fuse``, a
+        first-seen piece longer than it is a hole and a news entry.
 
         Returns ``(ids_buffer, seg_offsets, seg_ntokens, seg_npieces,
         news, new_n_rows, n_fused, n_copied, patches)``.  OWNERSHIP:
@@ -960,6 +971,7 @@ class SplitContext:
             self._PATCH_CAP,
             ctypes.byref(n_patches),
             _uid_ids_ptr(uid_ids, uid_rows),
+            int(defer_len),
             _counters_ptr(counters),
         )
         # With fuse disabled, row_cap was passed as 0 purely to gate the

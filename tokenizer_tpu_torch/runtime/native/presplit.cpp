@@ -952,6 +952,10 @@ enum ScanCounter {
   SC_BPE_MERGE_NS,    // merge time, summed over pieces
   SC_BPE_CALL_NS,     // the calls' wall
   SC_BPE_LONGEST_NS,  // each call's longest single piece, summed over calls
+  // a first-seen piece deferred to the news list unmerged because it is
+  // longer than the fused calls' ``defer_len`` (ABI 14; after the slots
+  // above so that they keep their index)
+  SC_DEFER_LONG,
   SC_COUNT
 };
 static_assert(SC_FUSED_LONG == SC_FUSED_SHORT + 3 &&
@@ -1447,6 +1451,9 @@ struct FuseState {
   int32_t* uid_rows;  // [uid_cap] uid -> row
   int64_t uid_cap;
   int32_t* uid_ids;   // nullable [uid_cap, 8] compact table (EmitState)
+  // A piece longer than this defers to the news list unmerged (0: none
+  // does): the caller merges long pieces elsewhere (the card's wave).
+  int64_t defer_len;
   std::atomic<int64_t> row_next;  // next free row (starts at _n_rows)
   std::atomic<int64_t> n_fused;   // pieces fully resolved in this call
   // Optional FROZEN previous dedup generation (generational eviction,
@@ -1496,13 +1503,20 @@ static inline bool fuse_outcome(int64_t* cnt, int k, int64_t t0,
 // piece's intern hash / padded inline key (already computed by the
 // scan), reused for the optional old-generation probe.  ``cnt``
 // (nullable) counts the merge by class and the deferral by reason; a
-// null ``fs`` or a ``row_cap`` of 0 is fusing turned off.
+// null ``fs`` or a ``row_cap`` of 0 is fusing turned off.  A piece longer
+// than ``fs->defer_len`` (when not 0) is neither merged nor copied from
+// an old generation: it defers at once (the caller's news path probes
+// the old generation too).
 static bool fuse_new_piece(FuseState* fs, FuseScratch* sc,
                            const uint8_t* buf, int64_t i, int64_t plen,
                            int32_t uid, uint64_t h, uint64_t key8,
                            int64_t* cnt) {
   if (!fs || fs->row_cap == 0) {
     if (cnt) cnt[SC_DEFER_OFF] += 1;
+    return false;
+  }
+  if (fs->defer_len > 0 && plen > fs->defer_len) {
+    if (cnt) cnt[SC_DEFER_LONG] += 1;
     return false;
   }
   if (uid >= fs->uid_cap ||
@@ -2296,7 +2310,8 @@ int64_t tt_ctx_split_batch(void* p, const uint8_t* buf,
 // ``old_*`` (all nullable) supply a FROZEN retired dedup generation:
 // first-seen pieces probe it and copy already-resolved rows instead of
 // re-merging (generational eviction; see FuseState).  *n_copied counts
-// those copies (a subset of *n_fused).
+// those copies (a subset of *n_fused).  ``defer_len`` (0: none) defers
+// every first-seen piece longer than it to the news arrays unmerged.
 int64_t tt_ctx_split_merge_batch(
     void* p, const uint8_t* buf, const int64_t* seg_start,
     const int64_t* seg_end, int64_t n_segs, int nthreads,
@@ -2309,7 +2324,8 @@ int64_t tt_ctx_split_merge_batch(
     const void* old_ctx, const int32_t* old_uid_rows,
     const int32_t* old_rows, const int32_t* old_row_len,
     const int32_t* old_row_u16, int64_t old_row_width, int64_t old_n_rows,
-    int64_t* n_copied, int32_t* uid_ids, int64_t* counters) {
+    int64_t* n_copied, int32_t* uid_ids, int64_t defer_len,
+    int64_t* counters) {
   FuseState fs;
   fs.byte_to_id = byte_to_id;
   fs.kl = kl;
@@ -2325,6 +2341,7 @@ int64_t tt_ctx_split_merge_batch(
   fs.uid_rows = uid_rows;
   fs.uid_cap = uid_cap;
   fs.uid_ids = uid_ids;
+  fs.defer_len = defer_len;
   fs.row_next.store(*row_next, std::memory_order_relaxed);
   fs.n_fused.store(0, std::memory_order_relaxed);
   fs.old_ctx = old_ctx;
@@ -2353,8 +2370,9 @@ int64_t tt_ctx_split_merge_batch(
 // the scanning threads and their ids emit inline; pieces that cannot
 // resolve inline (deferred fuse, uid capacity) become HOLES reported
 // via the patch arrays for the caller to backfill + compact.  Steady
-// state emits zero holes and runs at scan speed.  Returns total pieces
-// or -3/-4/-5/-6.
+// state emits zero holes and runs at scan speed.  ``defer_len`` as in
+// tt_ctx_split_merge_batch: a first-seen piece longer than it is a hole.
+// Returns total pieces or -3/-4/-5/-6.
 int64_t tt_ctx_split_emit_batch(
     void* p, const uint8_t* buf, const int64_t* seg_start,
     const int64_t* seg_end, int64_t n_segs, int nthreads,
@@ -2372,7 +2390,7 @@ int64_t tt_ctx_split_emit_batch(
     const int32_t* ovf_pool, int64_t ovf_len, int64_t* patch_seg,
     int64_t* patch_pos, int32_t* patch_uid, int32_t* patch_res,
     int64_t patch_cap, int64_t* n_patches, int32_t* uid_ids,
-    int64_t* counters) {
+    int64_t defer_len, int64_t* counters) {
   FuseState fs;
   fs.byte_to_id = byte_to_id;
   fs.kl = kl;
@@ -2388,6 +2406,7 @@ int64_t tt_ctx_split_emit_batch(
   fs.uid_rows = uid_rows;
   fs.uid_cap = uid_cap;
   fs.uid_ids = uid_ids;
+  fs.defer_len = defer_len;
   fs.row_next.store(*row_next, std::memory_order_relaxed);
   fs.n_fused.store(0, std::memory_order_relaxed);
   fs.old_ctx = old_ctx;
@@ -2935,6 +2954,6 @@ int64_t tt_bpe_encode_batch(const uint8_t* blob, const int64_t* starts,
   return err.load(std::memory_order_relaxed);
 }
 
-int tt_abi_version(void) { return 13; }
+int tt_abi_version(void) { return 14; }
 
 }  // extern "C"

@@ -78,7 +78,6 @@ def make_tok(rng: random.Random, v, spec, device="cuda") -> GpuTokenizer:
         tok._ensure_device()
         tok._host_wave_max = 0
         tok._host_pp = math.inf
-        tok._news_per_byte = 1.0
     return tok
 
 
